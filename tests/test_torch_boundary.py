@@ -1,0 +1,86 @@
+"""The port's boundary: it imports neither JAX nor the JAX package,
+initializes no CUDA context when imported, and never falls back to the
+CPU when CUDA was asked for and no card is present."""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from jepsen_tpu_torch.checkers.fused import check_queue_batch, combined_tensor_check
+from jepsen_tpu_torch.entry import entry
+from jepsen_tpu_torch.history.encode import pack_histories
+from jepsen_tpu_torch.history.synth import SynthSpec, synth_history
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "jepsen_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "jepsen_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 10
+    bad = [
+        (str(p.relative_to(REPO)), m)
+        for p in files
+        for m in _imported_modules(p)
+        if _forbidden(m)
+    ]
+    assert bad == []
+    assert not _forbidden("jepsen_tpu_torch.ops")
+
+
+def test_importing_the_port_loads_no_jax_and_no_cuda_context():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, json, sys, torch\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps({'loaded': sorted(k for k in sys.modules if k in "
+        f"{list(FORBIDDEN)!r} or k.startswith(('jax.', 'jepsen_tpu.'))), "
+        "'cuda': torch.cuda.is_initialized()}))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["loaded"] == [] and report["cuda"] is False
+    assert len(modules) > 10
+
+
+def test_default_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    h = synth_history(SynthSpec(n_ops=30)).ops
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        combined_tensor_check(pack_histories([h]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        check_queue_batch([h])
+    fn, args = entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(*args)
