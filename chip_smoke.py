@@ -23,7 +23,8 @@ Phases, each of which fails the run when it fails:
 6. timing with CUDA events at the main-path shape.
 
 The second-to-last line is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+``{"ok": true, "device": {...}}``.  A good run also appends its kernel
+table and timings, with the card, to ``chiprun_out/chip_smoke.jsonl``.  Without a CUDA device, or without the
 package beside it, the script exits nonzero and prints no result.
 """
 
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+RECORD = ROOT / "chiprun_out" / "chip_smoke.jsonl"  # one line per good run
 BASE_HISTORIES = 128
 N_OPS = 470
 LENGTH = 1024
@@ -127,6 +129,7 @@ class Smoke:
         self.dev = torch.device("cuda", 0)
         self.card = ""
         self.kernel = {}
+        self.timing = {}
 
     def card_phase(self):
         name = torch.cuda.get_device_name(0)
@@ -369,10 +372,26 @@ class Smoke:
               f"{check_ms:.6f} ms = {B / check_ms * 1e3:.1f} histories/s "
               f"without the host->device copy; {copy_ms:.6f} ms = "
               f"{B / copy_ms * 1e3:.1f} histories/s with it, on {self.card}")
+        self.timing = {
+            "B": B, "L": L, "V": V, "k1_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "total_queue_classify_ms": tq_ms,
+            "queue_lin_classify_ms": ql_ms, "device_check_ms": check_ms,
+            "device_check_hist_per_s": B / check_ms * 1e3,
+            "with_copy_ms": copy_ms, "with_copy_hist_per_s": B / copy_ms * 1e3,
+        }
         self.kernel.update(
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes"
             if bytes_ms >= ops_ms else "operations", library_ms=None,
         )
+
+
+def _record(rec: dict) -> None:
+    """Append one run's kernel table and timings to ``RECORD``, so that
+    each run's numbers are kept and not only the end of its output."""
+    RECORD.parent.mkdir(parents=True, exist_ok=True)
+    rec = {"at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()), **rec}
+    with RECORD.open("a") as fh:
+        fh.write(json.dumps(rec) + "\n")
 
 
 def main() -> int:
@@ -414,6 +433,8 @@ def main() -> int:
         "replaces": "jepsen_tpu/ops/pallas_stats.py:76",
         **s.kernel,
     }
+    _record({"card": s.card, "torch": torch.__version__,
+             "kernels": [kernel], "timing": s.timing})
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

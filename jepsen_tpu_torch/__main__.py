@@ -16,9 +16,9 @@ import json
 import sys
 from pathlib import Path
 
-from jepsen_tpu_torch.checkers.protocol import VALID, compose, merge_valid
-from jepsen_tpu_torch.checkers.queue_lin import DELIVERIES, QueueLinearizability
-from jepsen_tpu_torch.checkers.total_queue import TotalQueue
+from jepsen_tpu_torch.checkers.fused import check_queue_batch
+from jepsen_tpu_torch.checkers.protocol import VALID, merge_valid
+from jepsen_tpu_torch.checkers.queue_lin import DELIVERIES
 from jepsen_tpu_torch.history.ops import workload_of
 from jepsen_tpu_torch.history.store import (
     HISTORY_FILE,
@@ -53,13 +53,10 @@ def check_run(path: Path, delivery: str | None, device: str) -> dict:
         except (OSError, ValueError):
             prev = {}
         delivery = prev.get("linear", {}).get("delivery") or "exactly-once"
-    checker = compose(
-        {
-            "queue": TotalQueue(device=device),
-            "linear": QueueLinearizability(delivery=delivery, device=device),
-        }
-    )
-    return checker.check({}, history)
+    # one pack and one stats pass for both verdicts
+    result = check_queue_batch([history], delivery, device)[0]
+    result[VALID] = merge_valid(r[VALID] for r in result.values())
+    return result
 
 
 def main(argv=None) -> int:

@@ -34,12 +34,8 @@ from jepsen_tpu_torch.checkers.bitset import pack_bits, unpack_bits_np
 from jepsen_tpu_torch.checkers.protocol import VALID, Checker
 from jepsen_tpu_torch.history.encode import PackedHistories, pack_histories
 from jepsen_tpu_torch.history.ops import Op, OpF, OpType
-from jepsen_tpu_torch.ops.counts import (
-    INT32_MAX,
-    masked_value_counts,
-    masked_value_reduce_min,
-)
-from jepsen_tpu_torch.ops.queue_stats import fused_queue_stats
+from jepsen_tpu_torch.ops.counts import INT32_MAX
+from jepsen_tpu_torch.ops.queue_stats import fused_queue_stats, queue_stats_plain
 
 DELIVERIES = ("exactly-once", "at-least-once")
 
@@ -132,22 +128,10 @@ def queue_lin_count_vectors(f, type_, value, pos, mask, value_space: int):
     """Per-history ``(a, x, s, r, t)`` vectors ``[B, V]`` over ``[B, L]``
     rows: enqueue-invoke count, enqueue-fail count, earliest
     enqueue-invoke position, ok-read count, earliest ok-read position.
-    ``pos`` is each row's history position (``[L]`` or ``[B, L]``)."""
-    has_val = value >= 0
-    is_enq = (f == int(OpF.ENQUEUE)) & has_val & mask
-    is_read = (
-        ((f == int(OpF.DEQUEUE)) | (f == int(OpF.DRAIN)))
-        & has_val
-        & mask
-        & (type_ == int(OpType.OK))
-    )
-    enq_inv = is_enq & (type_ == int(OpType.INVOKE))
-    a = masked_value_counts(value, enq_inv, value_space)
-    x = masked_value_counts(value, is_enq & (type_ == int(OpType.FAIL)), value_space)
-    s = masked_value_reduce_min(value, enq_inv, pos, value_space)
-    r = masked_value_counts(value, is_read, value_space)
-    t = masked_value_reduce_min(value, is_read, pos, value_space)
-    return a, x, s, r, t
+    ``pos`` is each row's history position (``[L]`` or ``[B, L]``).  A
+    view of the plain stats pass."""
+    st = queue_stats_plain(f, type_, value, mask, value_space, pos)
+    return st.a, st.x, st.s, st.d, st.t
 
 
 def queue_lin_classify(

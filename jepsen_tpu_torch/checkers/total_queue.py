@@ -38,8 +38,7 @@ from jepsen_tpu_torch.checkers.bitset import pack_bits, unpack_bits_np
 from jepsen_tpu_torch.checkers.protocol import VALID, Checker
 from jepsen_tpu_torch.history.encode import PackedHistories, pack_histories
 from jepsen_tpu_torch.history.ops import Op, OpF, OpType
-from jepsen_tpu_torch.ops.counts import masked_value_counts
-from jepsen_tpu_torch.ops.queue_stats import fused_queue_stats
+from jepsen_tpu_torch.ops.queue_stats import fused_queue_stats, queue_stats_plain
 
 
 def check_total_queue_cpu(history: Sequence[Op]) -> dict[str, Any]:
@@ -137,14 +136,9 @@ def total_queue_count_vectors(
     value_space: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-history ``(attempts, acks, reads)`` count vectors ``[B, V]``
-    over ``[B, L]`` rows."""
-    has_val = value >= 0
-    is_enq = (f == int(OpF.ENQUEUE)) & has_val & mask
-    is_read = ((f == int(OpF.DEQUEUE)) | (f == int(OpF.DRAIN))) & has_val & mask
-    a = masked_value_counts(value, is_enq & (type_ == int(OpType.INVOKE)), value_space)
-    e = masked_value_counts(value, is_enq & (type_ == int(OpType.OK)), value_space)
-    d = masked_value_counts(value, is_read & (type_ == int(OpType.OK)), value_space)
-    return a, e, d
+    over ``[B, L]`` rows: a view of the plain stats pass."""
+    st = queue_stats_plain(f, type_, value, mask, value_space)
+    return st.a, st.e, st.d
 
 
 def _total(x: torch.Tensor) -> torch.Tensor:

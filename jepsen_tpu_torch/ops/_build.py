@@ -43,34 +43,29 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(*names: str) -> dict[str, Path]:
-    """Compile every named kernel source that has no library yet, one
-    ``nvcc`` per source, all started together; return the libraries."""
-    libs = {name: _lib_path(name) for name in names}
-    jobs = {}
-    for name, lib in libs.items():
-        if lib.is_file():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
-    failed = []
-    for name, (tmp, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, libs[name])  # atomic against a concurrent build
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return libs
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; return the
+    library."""
+    lib = _lib_path(name)
+    if lib.is_file():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        check=False,
+    )
+    if proc.returncode:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}"
+        )
+    os.replace(tmp, lib)  # atomic against a concurrent build
+    return lib
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    return ctypes.CDLL(str(build(name)[name]))
+    return ctypes.CDLL(str(build(name)))
