@@ -8,10 +8,17 @@ Run from the root of the repository, on a host with one NVIDIA H100:
 Phases, each of which fails the run when it fails:
 
 1. the card, from torch and from ``nvidia-smi``;
-2. build the CUDA kernel from ``jepsen_tpu_torch/csrc`` with nvcc;
+2. build the CUDA kernel from ``jepsen_tpu_torch/csrc`` with nvcc, and
+   beside it print what ``nvcc -Xptxas -v`` says of each instantiation
+   (registers, spills) and how many 128-bit loads and stores its SASS
+   holds (``cuobjdump -sass``);
 3. hold the kernel bit-exact against its plain PyTorch version on the
-   card: the anomaly corpus, L=128, L and V off multiples of 128, int32
-   values (V > 32767), explicit positions;
+   card on every load path (:func:`exact_cases`): the anomaly corpus,
+   L=128, L and V off multiples of 128, 16 and 4, int32 values
+   (V=40,000), ``[L]``, ``[B, L]`` and int64 positions, columns placed
+   off a 16-byte boundary or not contiguous, B=1, V=1, several row
+   chunks; each case says
+   which load path it took, and both paths must be reached;
 4. the main path at full width: 128 distinct synthetic histories
    (470 ops, 5 processes, one lost and one duplicated value each) packed
    at L=1024 and tiled to B=10,240, checked through the kernel under
@@ -20,11 +27,16 @@ Phases, each of which fails the run when it fails:
    histories equal the CPU oracles, and the kernel's launch count rose;
 5. ``python -m jepsen_tpu_torch check`` on two recorded runs, whose
    ``queue``/``linear`` maps must equal the run's ``results.json``;
-6. timing with CUDA events at the main-path shape.
+6. timing at the main-path shape: the kernel, its plain version, the
+   stages and the device check back to back with CUDA events (host
+   overhead included where it exceeds the card's time), and the kernel
+   again by device time and by its wrapper's host time per call (calls
+   enqueued behind a sleep on the card, see ``jepsen_tpu_torch.timing``).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  A good run also appends its kernel
-table and timings, with the card, to ``chiprun_out/chip_smoke.jsonl``.  Without a CUDA device, or without the
+table, build report and timings, with the card, to
+``chiprun_out/chip_smoke.jsonl``.  Without a CUDA device, or without the
 package beside it, the script exits nonzero and prints no result.
 """
 
@@ -34,6 +46,8 @@ import contextlib
 import dataclasses
 import io
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -45,10 +59,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 RECORD = ROOT / "chiprun_out" / "chip_smoke.jsonl"  # one line per good run
-BASE_HISTORIES = 128
-N_OPS = 470
-LENGTH = 1024
-MAIN_B = 10_240
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 OPS_PER_ROW = 12  # integer compares, selects and atomics per row of K1
@@ -102,26 +112,192 @@ def _random_packed(rng, B: int, L: int, V: int, dev):
     return from_reference_arrays(cols, V, dev)
 
 
-def _main_batch():
-    """128 distinct histories packed at L=1024 on the host."""
+def _offset(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a contiguous tensor that starts one element past
+    an aligned address, as a slice of a larger buffer would."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@dataclasses.dataclass
+class ExactCase:
+    name: str
+    packed: object  # PackedHistories on the CPU
+    pos: torch.Tensor | None = None
+    shift: tuple[str, ...] = ()  # columns placed off a 16-byte boundary
+    path: str = "vector"  # the load path K1 must take
+
+
+def exact_cases() -> list[ExactCase]:
+    """Phase 3's inputs, made from fixed seeds on the CPU."""
     from jepsen_tpu_torch.history.encode import pack_histories
+    from jepsen_tpu_torch.history.rows import _rows_for
     from jepsen_tpu_torch.history.synth import SynthSpec, synth_batch
+    from jepsen_tpu_torch.timing import LENGTH
 
-    base = synth_batch(
-        BASE_HISTORIES, SynthSpec(n_ops=N_OPS, n_processes=5),
-        lost=1, duplicated=1,
-    )
-    hs = [sh.ops for sh in base]
-    return hs, pack_histories(hs, length=LENGTH, device="cpu")
+    rng = np.random.default_rng(20261016)
+    cases = []
+    for anomalies in ({}, {"lost": 2}, {"duplicated": 1},
+                      {"unexpected": 1}, {"phantom_fail": 1},
+                      {"causality": 1}):
+        shs = synth_batch(4, SynthSpec(n_ops=200), **anomalies)
+        cases.append(ExactCase(
+            f"corpus{anomalies}",
+            pack_histories([s.ops for s in shs], device="cpu")))
+    shs = synth_batch(2, SynthSpec(n_ops=40))
+    cases.append(ExactCase("L=128", pack_histories(
+        [s.ops for s in shs], length=128, device="cpu")))
+    hs = [s.ops for s in synth_batch(3, SynthSpec(n_ops=100),
+                                     lost=1, causality=1)]
+    rows = [_rows_for(h) for h in hs]
+    V = max(int(r[:, 4].max()) for r in rows) + 1
+    V += V % 128 == 0
+    L = max(r.shape[0] for r in rows) + 3
+    L += L % 128 == 0
+    cases.append(ExactCase(f"L={L},V={V}", pack_histories(
+        hs, length=L, value_space=V, device="cpu"), path="scalar"))
+    cases.append(ExactCase("int32 values V=40000, L=1000",
+                           _random_packed(rng, 16, 1000, 40_000, "cpu"),
+                           path="scalar"))
+    p = _random_packed(rng, 12, 777, 5000, "cpu")
+    pos = torch.from_numpy(
+        rng.integers(0, 2**31 - 1, (12, 777)).astype(np.int32))
+    cases.append(ExactCase("explicit pos V=5000", p, pos, path="scalar"))
+
+    def positions(shape, dtype=np.int32):
+        return torch.from_numpy(
+            rng.integers(-5, 2**31 - 1, shape).astype(dtype))
+
+    main = (LENGTH, 384)
+    strided = _random_packed(rng, 12, *main, "cpu")
+    cases += [
+        ExactCase("int32 values V=40000, L=1024",
+                  _random_packed(rng, 8, 1024, 40_000, "cpu")),
+        ExactCase("[L] pos", _random_packed(rng, 12, *main, "cpu"),
+                  positions(LENGTH)),
+        ExactCase("[B, L] pos", _random_packed(rng, 12, *main, "cpu"),
+                  positions((12, LENGTH))),
+        ExactCase("int64 [B, L] pos", _random_packed(rng, 12, *main, "cpu"),
+                  positions((12, LENGTH), np.int64)),
+        ExactCase("int64 [L] pos", _random_packed(rng, 12, *main, "cpu"),
+                  positions(LENGTH, np.int64)),
+        ExactCase("f off a 16-byte boundary",
+                  _random_packed(rng, 12, *main, "cpu"), shift=("f",),
+                  path="scalar"),
+        ExactCase("value and pos off a 16-byte boundary",
+                  _random_packed(rng, 12, *main, "cpu"),
+                  positions((12, LENGTH)), shift=("value", "pos"),
+                  path="scalar"),
+        ExactCase("L=1000 (L % 16 != 0)",
+                  _random_packed(rng, 12, 1000, 384, "cpu"), path="scalar"),
+        ExactCase("V=382 (V % 4 != 0)",
+                  _random_packed(rng, 12, LENGTH, 382, "cpu"), path="scalar"),
+        ExactCase("B=1", _random_packed(rng, 1, *main, "cpu")),
+        ExactCase("f column-major (not contiguous)", dataclasses.replace(
+            strided, f=strided.f.t().contiguous().t())),
+        ExactCase("V=1", _random_packed(rng, 8, LENGTH, 1, "cpu"),
+                  path="scalar"),
+        ExactCase("B=9 (B % 4 != 0)", _random_packed(rng, 9, *main, "cpu")),
+        ExactCase("L=3088, four row chunks, [B, L] pos",
+                  _random_packed(rng, 6, 3088, 384, "cpu"),
+                  positions((6, 3088))),
+        ExactCase("L=3000, three row chunks",
+                  _random_packed(rng, 6, 3000, 384, "cpu"), path="scalar"),
+    ]
+    return cases
 
 
-def _tile(packed, reps: int, dev):
+def check_exact_case(case: ExactCase, dev) -> tuple[str, int]:
+    """Runs one case through K1 on ``dev`` and through the plain version
+    on the card and on the CPU; raises unless all three agree exactly and
+    K1 took the case's load path.  Returns the path and the largest
+    absolute difference."""
     from jepsen_tpu_torch.history.encode import TENSOR_FIELDS
-
-    return dataclasses.replace(
-        packed,
-        **{k: getattr(packed, k).repeat(reps, 1).to(dev) for k in TENSOR_FIELDS},
+    from jepsen_tpu_torch.ops.queue_stats import (
+        fused_queue_stats,
+        queue_stats_plain,
     )
+
+    packed = case.packed
+    g = dataclasses.replace(packed, **{
+        k: getattr(packed, k).to(dev) for k in TENSOR_FIELDS})
+    gpos = None if case.pos is None else case.pos.to(dev)
+    g = dataclasses.replace(g, **{
+        k: _offset(getattr(g, k)) for k in case.shift if k != "pos"})
+    if "pos" in case.shift:
+        gpos = _offset(gpos)
+    k = fused_queue_stats(g, gpos)
+    path = fused_queue_stats.last_path
+    pl = queue_stats_plain(g.f, g.type, g.value, g.mask, g.value_space, gpos)
+    torch.cuda.synchronize()
+    err = _stats_err(k, pl)
+    _equal_fields(k, pl, f"K1 vs plain on the card, {case.name}")
+    cpu = queue_stats_plain(packed.f, packed.type, packed.value,
+                            packed.mask, packed.value_space, case.pos)
+    _equal_fields(dataclasses.replace(k, **{
+        f: getattr(k, f).cpu() for f in "aexdst"}), cpu,
+        f"K1 vs plain on the CPU, {case.name}")
+    if path != case.path:
+        raise AssertionError(
+            f"{case.name}: K1 took the {path} path, not the {case.path} path")
+    return path, err
+
+
+_KERNEL_RE = re.compile(r"queue_stats_kernelI([si])Lb([01])ELb([01])E")
+
+
+def _kernel_label(mangled: str) -> str:
+    m = _KERNEL_RE.search(mangled)
+    if not m:
+        return mangled
+    return (f"{'int16' if m[1] == 's' else 'int32'} values, "
+            f"{'vector' if m[2] == '1' else 'scalar'} path"
+            f"{', pos' if m[3] == '1' else ''}")
+
+
+def _ptxas_report(proc: subprocess.Popen) -> dict:
+    """Registers and spills of each kernel, from ``-Xptxas -v``."""
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out}")
+    report, name = {}, None
+    for line in out.splitlines():
+        print(f"ptxas: {line.strip()}")
+        if m := re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", line):
+            name = _kernel_label(m[1])
+            report.setdefault(name, {})
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", line)):
+            report[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            report[name]["registers"] = int(m[1])
+    return report
+
+
+def _sass_report(lib: Path, nvcc: str, report: dict) -> None:
+    """Counts of 128-bit global loads and stores per kernel, from
+    ``cuobjdump -sass`` of the built library."""
+    tool = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
+    if not Path(tool).is_file():
+        print("sass: the toolkit has no cuobjdump; no SASS evidence")
+        return
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    name = None
+    for line in out.splitlines():
+        if m := re.search(r"Function : (\w+)", line):
+            name = _kernel_label(m[1])
+            report.setdefault(name, {}).update(ldg=0, ldg_128=0, stg_128=0)
+        elif name and re.search(r"\bLDG\.", line):
+            report[name]["ldg"] += 1
+            report[name]["ldg_128"] += bool(re.search(r"\bLDG\.[\w.]*128\b", line))
+        elif name and re.search(r"\bSTG\.[\w.]*128\b", line):
+            report[name]["stg_128"] += 1
+    for name, r in report.items():
+        print(f"sass: {name}: {r}")
 
 
 class Smoke:
@@ -130,6 +306,8 @@ class Smoke:
         self.card = ""
         self.kernel = {}
         self.timing = {}
+        self.build = {}
+        self.exact = []
 
     def card_phase(self):
         name = torch.cuda.get_device_name(0)
@@ -147,65 +325,37 @@ class Smoke:
         from jepsen_tpu_torch.ops import _build
 
         t0 = time.perf_counter()
-        _build.build("queue_stats")
+        nvcc = _build._nvcc()
+        src = _build.CSRC / "queue_stats.cu"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        flags = [f for f in _build.NVCC_FLAGS
+                 if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        # the resource report compiles beside the build, not after it
+        ptxas = subprocess.Popen(
+            [nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o",
+             str(_build.BUILD_DIR / "queue_stats.cubin"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        lib = _build.build("queue_stats")
         _build.load("queue_stats")
         print(f"build: queue_stats.cu with nvcc {' '.join(_build.NVCC_FLAGS)} "
               f"in {time.perf_counter() - t0:.2f} s")
+        self.build = _ptxas_report(ptxas)
+        _sass_report(lib, nvcc, self.build)
 
     def exact_phase(self):
-        from jepsen_tpu_torch.history.encode import TENSOR_FIELDS, pack_histories
-        from jepsen_tpu_torch.history.rows import _rows_for
-        from jepsen_tpu_torch.history.synth import SynthSpec, synth_batch
-        from jepsen_tpu_torch.ops.queue_stats import (
-            fused_queue_stats,
-            queue_stats_plain,
-        )
-
-        rng = np.random.default_rng(20261016)
-        cases = []
-        for anomalies in ({}, {"lost": 2}, {"duplicated": 1},
-                          {"unexpected": 1}, {"phantom_fail": 1},
-                          {"causality": 1}):
-            shs = synth_batch(4, SynthSpec(n_ops=200), **anomalies)
-            cases.append((f"corpus{anomalies}",
-                          pack_histories([s.ops for s in shs], device="cpu"),
-                          None))
-        shs = synth_batch(2, SynthSpec(n_ops=40))
-        cases.append(("L=128", pack_histories(
-            [s.ops for s in shs], length=128, device="cpu"), None))
-        hs = [s.ops for s in synth_batch(3, SynthSpec(n_ops=100),
-                                         lost=1, causality=1)]
-        rows = [_rows_for(h) for h in hs]
-        V = max(int(r[:, 4].max()) for r in rows) + 1
-        V += V % 128 == 0
-        L = max(r.shape[0] for r in rows) + 3
-        L += L % 128 == 0
-        cases.append((f"L={L},V={V}", pack_histories(
-            hs, length=L, value_space=V, device="cpu"), None))
-        cases.append(("int32 values V=40000",
-                      _random_packed(rng, 16, 1000, 40_000, "cpu"), None))
-        p = _random_packed(rng, 12, 777, 5000, "cpu")
-        pos = torch.from_numpy(
-            rng.integers(0, 2**31 - 1, (12, 777)).astype(np.int32))
-        cases.append(("explicit pos V=5000", p, pos))
-        for name, packed, pos in cases:
-            g = dataclasses.replace(packed, **{
-                k: getattr(packed, k).to(self.dev) for k in TENSOR_FIELDS})
-            gpos = None if pos is None else pos.to(self.dev)
-            k = fused_queue_stats(g, gpos)
-            pl = queue_stats_plain(g.f, g.type, g.value, g.mask,
-                                   g.value_space, gpos)
-            torch.cuda.synchronize()
-            err = _stats_err(k, pl)
-            _equal_fields(k, pl, f"K1 vs plain on the card, {name}")
-            cpu = queue_stats_plain(packed.f, packed.type, packed.value,
-                                    packed.mask, packed.value_space, pos)
-            _equal_fields(dataclasses.replace(k, **{
-                f: getattr(k, f).cpu() for f in "aexdst"}), cpu,
-                f"K1 vs plain on the CPU, {name}")
-            print(f"exact: {name} B={packed.batch} L={packed.length} "
-                  f"V={packed.value_space} value={packed.value.dtype} "
-                  f"max_abs_err={err}")
+        for case in exact_cases():
+            path, err = check_exact_case(case, self.dev)
+            p = case.packed
+            pos = "none" if case.pos is None else (
+                f"{list(case.pos.shape)} {case.pos.dtype}")
+            print(f"exact: {case.name} B={p.batch} L={p.length} "
+                  f"V={p.value_space} value={p.value.dtype} pos={pos} "
+                  f"load path={path} max_abs_err={err}")
+            self.exact.append({"case": case.name, "path": path,
+                               "max_abs_err": err})
+        paths = {e["path"] for e in self.exact}
+        if paths != {"vector", "scalar"}:
+            raise AssertionError(f"phase 3 reached only the {paths} path(s)")
 
     def main_phase(self):
         from jepsen_tpu_torch.checkers.fused import combined_tensor_check
@@ -223,10 +373,16 @@ class Smoke:
             fused_queue_stats,
             queue_stats_plain,
         )
+        from jepsen_tpu_torch.timing import (
+            BASE_HISTORIES,
+            MAIN_B,
+            main_batch,
+            tile,
+        )
 
-        hs, host = _main_batch()
+        hs, host = main_batch()
         reps = MAIN_B // BASE_HISTORIES
-        g = _tile(host, reps, self.dev)
+        g = tile(host, reps, self.dev)
         print(f"main: B={g.batch} L={g.length} V={g.value_space} "
               f"({BASE_HISTORIES} distinct histories x {reps})")
         runs = [(d, po) for d in ("exactly-once", "at-least-once")
@@ -238,7 +394,8 @@ class Smoke:
         launches = fused_queue_stats.launches
         if launches <= 0:
             raise AssertionError("the main path launched no K1 kernel")
-        print(f"main: K1 launches on the main path = {launches}")
+        print(f"main: K1 launches on the main path = {launches}, load path "
+              f"{fused_queue_stats.last_path}")
         oracle_tq = [check_total_queue_cpu(h) for h in hs]
         for (delivery, po), (tq, ql) in outs.items():
             what = f"{delivery}, packed_out={po}"
@@ -311,34 +468,26 @@ class Smoke:
             fused_queue_stats,
             queue_stats_plain,
         )
+        from jepsen_tpu_torch.timing import event_ms, queued_ms
 
         g, host = self.g, self.host
         B, L, V = g.batch, g.length, g.value_space
 
-        def event_ms(fn, n: int) -> float:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(end) / n
-
         ms = event_ms(lambda: fused_queue_stats(g), 50)
         plain_ms = event_ms(lambda: queue_stats_plain(
             g.f, g.type, g.value, g.mask, V), 10)
+        device_ms, host_us = queued_ms(lambda: fused_queue_stats(g), 50)
         nbytes = sum(t.numel() * t.element_size()
                      for t in (g.f, g.type, g.value, g.mask)) + B * 6 * V * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = OPS_PER_ROW * B * L / INT32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        print(f"timing: K1 {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
-              f"{bound_ms:.6f} ms ({nbytes} bytes; ops bound "
-              f"{ops_ms:.6f} ms) at B={B} L={L} V={V} on {self.card}")
+        print(f"timing: K1 {ms:.6f} ms back to back through the wrapper "
+              f"({device_ms:.6f} ms device time, {bound_ms / device_ms:.1%} "
+              f"of the bound; the wrapper's host time {host_us:.3f} us per "
+              f"call), plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms "
+              f"({nbytes} bytes; ops bound {ops_ms:.6f} ms), at B={B} L={L} "
+              f"V={V} on {self.card}")
 
         check_ms = event_ms(
             lambda: combined_tensor_check(g, packed_out=True), 20)
@@ -374,6 +523,7 @@ class Smoke:
               f"{B / copy_ms * 1e3:.1f} histories/s with it, on {self.card}")
         self.timing = {
             "B": B, "L": L, "V": V, "k1_ms": ms, "plain_ms": plain_ms,
+            "k1_device_ms": device_ms, "k1_host_us": host_us,
             "bound_ms": bound_ms, "total_queue_classify_ms": tq_ms,
             "queue_lin_classify_ms": ql_ms, "device_check_ms": check_ms,
             "device_check_hist_per_s": B / check_ms * 1e3,
@@ -382,6 +532,7 @@ class Smoke:
         self.kernel.update(
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes"
             if bytes_ms >= ops_ms else "operations", library_ms=None,
+            device_ms=device_ms, host_us=host_us,
         )
 
 
@@ -434,7 +585,8 @@ def main() -> int:
         **s.kernel,
     }
     _record({"card": s.card, "torch": torch.__version__,
-             "kernels": [kernel], "timing": s.timing})
+             "kernels": [kernel], "timing": s.timing, "build": s.build,
+             "exact": s.exact})
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

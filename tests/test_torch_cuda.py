@@ -4,7 +4,10 @@ This file imports no JAX, so that it runs where the card is:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Where no card is present the test skips.
+Where no card is present the tests skip.  :data:`REFUSALS`, the inputs
+the stats dispatcher refuses on every device, and :data:`LOAD_PATHS`,
+inputs of both of K1's load paths, are shared with the CPU tests of
+``test_torch_queue_stats.py``.
 """
 
 import dataclasses
@@ -16,7 +19,11 @@ import torch
 from jepsen_tpu_torch.checkers.fused import combined_tensor_check
 from jepsen_tpu_torch.checkers.queue_lin import queue_lin_tensor_check
 from jepsen_tpu_torch.checkers.total_queue import total_queue_tensor_check
-from jepsen_tpu_torch.history.encode import TENSOR_FIELDS, pack_histories
+from jepsen_tpu_torch.history.encode import (
+    TENSOR_FIELDS,
+    from_reference_arrays,
+    pack_histories,
+)
 from jepsen_tpu_torch.history.synth import SynthSpec, synth_batch
 from jepsen_tpu_torch.ops.queue_stats import fused_queue_stats, queue_stats_plain
 
@@ -28,10 +35,99 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def refusal_base(dev):
+    """A small valid batch on ``dev`` that :data:`REFUSALS` spoils."""
+    hs = [s.ops for s in synth_batch(2, SynthSpec(n_ops=30))]
+    return _to(pack_histories(hs, device="cpu"), dev)
+
+
+def _columns(**fns):
+    return lambda p: (dataclasses.replace(
+        p, **{k: fn(getattr(p, k)) for k, fn in fns.items()}), None)
+
+
+def _pos(make):
+    return lambda p: (p, make(p))
+
+
+#: name -> (spoil: packed -> (packed, pos), the error every device raises)
+REFUSALS = {
+    "int64 pos above int32": (_pos(lambda p: torch.full(
+        p.f.shape, 2**31, dtype=torch.int64, device=p.device)), ValueError),
+    "int64 [L] pos below int32": (_pos(lambda p: torch.full(
+        p.f.shape[1:], -2**31 - 1, dtype=torch.int64, device=p.device)),
+        ValueError),
+    "float pos": (_pos(lambda p: torch.zeros(
+        p.f.shape, device=p.device)), TypeError),
+    "bool pos": (_pos(lambda p: torch.zeros(
+        p.f.shape, dtype=torch.bool, device=p.device)), TypeError),
+    "pos of shape [B, L+1]": (_pos(lambda p: torch.zeros(
+        (p.batch, p.length + 1), dtype=torch.int32, device=p.device)),
+        ValueError),
+    "pos of shape [1, L]": (_pos(lambda p: torch.zeros(
+        (1, p.length), dtype=torch.int32, device=p.device)), ValueError),
+    "int32 f": (_columns(f=lambda t: t.int()), TypeError),
+    "int16 type": (_columns(type=lambda t: t.short()), TypeError),
+    "uint8 mask": (_columns(mask=lambda t: t.to(torch.uint8)), TypeError),
+    "int64 value": (_columns(value=lambda t: t.long()), TypeError),
+    "int8 value": (_columns(value=lambda t: t.to(torch.int8)), TypeError),
+    "mask of another shape": (_columns(mask=lambda t: t[:, :-1]), ValueError),
+    "1-D columns": (_columns(**{k: (lambda t: t[0]) for k in
+                                ("f", "type", "value", "mask")}), ValueError),
+    "value_space 0": (lambda p: (dataclasses.replace(p, value_space=0), None),
+                      ValueError),
+}
+
+
 def _to(packed, dev):
     return dataclasses.replace(
         packed, **{k: getattr(packed, k).to(dev) for k in TENSOR_FIELDS}
     )
+
+
+#: (L, V, input placed off a 16-byte boundary, the load path K1 takes):
+#: the vector path needs L % 16 == 0, V % 4 == 0 and aligned arrays
+LOAD_PATHS = [
+    (1024, 384, None, "vector"), (128, 4, None, "vector"),
+    (1000, 384, None, "scalar"), (1024, 382, None, "scalar"),
+    (1024, 1, None, "scalar"), (1024, 384, "f", "scalar"),
+    (1024, 384, "value", "scalar"), (1024, 384, "pos", "scalar"),
+]
+
+
+def shifted(t):
+    """``t`` copied to start one element past an aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def load_path_input(L, V, shift, dev):
+    """Three random histories of ``L`` rows over ``V`` value ids and an
+    ``[L]`` pos, on ``dev``, with input ``shift`` placed off a 16-byte
+    boundary; returns ``(columns as numpy, packed, pos)``."""
+    rng = np.random.default_rng(L * 1000 + V)
+    B = 3
+    cols = {
+        "f": rng.integers(0, 6, (B, L)).astype(np.int8),
+        "type": rng.integers(0, 4, (B, L)).astype(np.int8),
+        "value": rng.integers(-1, V + 2, (B, L)).astype(np.int16),
+        "mask": rng.random((B, L)) < 0.9,
+        "pos": rng.integers(-2**31, 2**31 - 1, L, endpoint=True).astype(
+            np.int32),
+    }
+    cols["first"] = cols["mask"].copy()
+    for k in ("index", "process", "time_ms", "latency_ms"):
+        cols[k] = np.full((B, L), -1, np.int32)
+    packed = from_reference_arrays(cols, V, dev)
+    pos = torch.from_numpy(cols["pos"]).to(dev)
+    if shift == "pos":
+        pos = shifted(pos)
+    elif shift:
+        packed = dataclasses.replace(
+            packed, **{shift: shifted(getattr(packed, shift))})
+    return cols, packed, pos
 
 
 @pytest.mark.cuda
@@ -64,3 +160,41 @@ def test_kernel_equals_plain_on_the_card(cuda_device):
             for x, y in ((tq, tq_p), (ql, ql_p)):
                 for fl in dataclasses.fields(x):
                     assert torch.equal(getattr(x, fl.name), getattr(y, fl.name))
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_on_every_load_path(cuda_device):
+    from chip_smoke import check_exact_case, exact_cases
+
+    paths = set()
+    for case in exact_cases():
+        before = fused_queue_stats.launches
+        path, err = check_exact_case(case, cuda_device)
+        assert err == 0, case.name
+        assert fused_queue_stats.launches == before + 1, case.name
+        paths.add(path)
+    assert paths == {"vector", "scalar"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(REFUSALS))
+def test_card_refuses_what_the_cpu_refuses(cuda_device, name):
+    spoil, error = REFUSALS[name]
+    for dev in (torch.device("cpu"), cuda_device):
+        packed, pos = spoil(refusal_base(dev))
+        before = fused_queue_stats.launches
+        with pytest.raises(error):
+            fused_queue_stats(packed, pos)
+        assert fused_queue_stats.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L, V, shift, path", LOAD_PATHS)
+def test_launcher_chooses_the_load_path(cuda_device, L, V, shift, path):
+    _, packed, pos = load_path_input(L, V, shift, cuda_device)
+    k = fused_queue_stats(packed, pos)
+    assert fused_queue_stats.last_path == path
+    pl = queue_stats_plain(packed.f, packed.type, packed.value, packed.mask,
+                           V, pos)
+    for f in "aexdst":
+        assert torch.equal(getattr(k, f), getattr(pl, f)), f

@@ -16,9 +16,14 @@ from jepsen_tpu_torch.ops.counts import (
     masked_value_counts,
     masked_value_reduce_min,
 )
-from jepsen_tpu_torch.ops.queue_stats import fused_queue_stats, queue_stats_plain
+from jepsen_tpu_torch.ops.queue_stats import (
+    _validated,
+    fused_queue_stats,
+    queue_stats_plain,
+)
 
 from _torch_ref import ANOMALIES, ANOMALY_IDS, corpus_histories, reference_pair
+from test_torch_cuda import LOAD_PATHS, REFUSALS, load_path_input, refusal_base
 
 
 def _jax_scatter_stats(ref):
@@ -143,3 +148,60 @@ def test_unsupported_device_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="one device"):
         fused_queue_stats(mine, torch.zeros(mine.f.shape, dtype=torch.int32,
                                             device="meta"))
+
+
+def _jax_queue_lin_stats(ref, pos):
+    """The JAX package's ``(a, x, s, d, t)`` with one ``[L]`` row of
+    positions for every history."""
+    V = ref.value_space
+    a, x, s, r, t = jax.vmap(
+        lambda f, ty, v, m: queue_lin_count_vectors(f, ty, v, pos, m, V)
+    )(ref.f, ref.type, ref.value, ref.mask)
+    return dict(a=a, x=x, s=s, d=r, t=t)
+
+
+def test_row_pos_equals_broadcast_rows_and_jax_count_vectors():
+    ref, mine = reference_pair(corpus_histories(n=3, n_ops=120, lost=1,
+                                                causality=1))
+    rng = np.random.default_rng(7)
+    pos = rng.permutation(2**20)[:mine.length].astype(np.int32)
+    row = fused_queue_stats(mine, torch.from_numpy(pos))
+    rows = fused_queue_stats(mine, torch.from_numpy(
+        np.broadcast_to(pos, mine.f.shape).copy()))
+    _assert_stats(row, rows)
+    want = _jax_queue_lin_stats(ref, pos)
+    for k in "axsdt":
+        np.testing.assert_array_equal(getattr(row, k).numpy(),
+                                      np.asarray(want[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("shape", ["row", "batch"])
+def test_int64_pos_in_range_equals_int32(shape):
+    _, mine = reference_pair(corpus_histories(n=2, n_ops=80, duplicated=1))
+    rng = np.random.default_rng(11)
+    dims = (mine.length,) if shape == "row" else tuple(mine.f.shape)
+    pos = rng.integers(-2**31, 2**31 - 1, dims, endpoint=True)
+    p32 = torch.from_numpy(pos.astype(np.int32))
+    p64 = torch.from_numpy(pos.astype(np.int64))
+    _assert_stats(fused_queue_stats(mine, p64), fused_queue_stats(mine, p32))
+    # int32 is taken as it is: no range check, no copy
+    assert _validated(mine, p32) is p32
+
+
+@pytest.mark.parametrize("name", list(REFUSALS))
+def test_contract_refuses_on_the_cpu_what_it_refuses_on_the_card(name):
+    spoil, error = REFUSALS[name]
+    packed, pos = spoil(refusal_base("cpu"))
+    with pytest.raises(error):
+        fused_queue_stats(packed, pos)
+
+
+@pytest.mark.parametrize("L, V, shift, path", LOAD_PATHS)
+def test_inputs_of_both_load_paths_equal_row_loop_on_the_cpu(L, V, shift, path):
+    # the card takes these on its vector or scalar path; the CPU takes
+    # the same inputs, misaligned ones included, and gives the same stats
+    cols, packed, pos = load_path_input(L, V, shift, "cpu")
+    st = fused_queue_stats(packed, pos)
+    _assert_stats(st, _loop_stats(
+        cols["f"], cols["type"], cols["value"], cols["mask"], V,
+        np.broadcast_to(cols["pos"], cols["f"].shape)))
