@@ -25,13 +25,28 @@ Phases, each of which fails the run when it fails:
    both delivery contracts and both output layouts; the tensors equal
    the plain path on the card, the result maps of the 128 distinct
    histories equal the CPU oracles, and the kernel's launch count rose;
-5. ``python -m jepsen_tpu_torch check`` on two recorded runs, whose
-   ``queue``/``linear`` maps must equal the run's ``results.json``;
+5. ``python -m jepsen_tpu_torch check`` on copies of two recorded runs
+   (``check`` writes results, graphs and caches into the run
+   directory), whose ``queue``/``linear`` maps must equal the run's
+   ``results.json`` and whose ``perf`` map must name the same graphs;
 6. timing at the main-path shape: the kernel, its plain version, the
    stages and the device check back to back with CUDA events (host
-   overhead included where it exceeds the card's time), and the kernel
+   overhead included where it exceeds the card's time), the kernel
    again by device time and by its wrapper's host time per call (calls
-   enqueued behind a sleep on the card, see ``jepsen_tpu_torch.timing``).
+   enqueued behind a sleep on the card, see ``jepsen_tpu_torch.timing``),
+   and the device check with the host->device copy of its four columns,
+   from pageable memory and through the pipeline's pinned staging ring;
+7. the pipeline at full width: a store of 10,240 JSONL histories (the
+   128 distinct histories of the bench spec, 64 clean and 64 with one
+   lost and one duplicated value, each written 80 times) through
+   ``bench-check --pipeline``, cold (its classification parses each
+   file natively and writes its ``.jtc``, as the JAX command's does),
+   warm, warm ``--serial`` and warm at chunk 1024: every pass must
+   count 5,120 invalid and none quarantined, give each history the CPU
+   oracles' maps, launch K1 once per batch on its vector path, and
+   serial must equal overlapped; then the producer's work per history
+   (cache read, native parse, ``.jtc`` write, host pack) timed alone,
+   and K1 timed at the pipeline's batch of 64 histories.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  A good run also appends its kernel
@@ -46,10 +61,12 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -94,6 +111,19 @@ def _stats_err(k, p) -> int:
         int((getattr(k, f).long() - getattr(p, f).long()).abs().max())
         for f in "aexdst"
     )
+
+
+def _host_ms(fn, n: int = 10) -> float:
+    """Host-clock time per call of ``fn`` over ``n`` calls that end in a
+    synchronize (after two warm-up calls)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
 
 
 def _random_packed(rng, B: int, L: int, V: int, dev):
@@ -308,6 +338,8 @@ class Smoke:
         self.timing = {}
         self.build = {}
         self.exact = []
+        self.matplotlib = None
+        self.pipeline = {}
 
     def card_phase(self):
         name = torch.cuda.get_device_name(0)
@@ -428,19 +460,28 @@ class Smoke:
 
     def recorded_phase(self):
         from jepsen_tpu_torch.__main__ import main as cli
+        from jepsen_tpu_torch.checkers.perf import MATPLOTLIB_MISSING
         from jepsen_tpu_torch.checkers.protocol import VALID, merge_valid
         from jepsen_tpu_torch.ops.queue_stats import fused_queue_stats
 
         for store, delivery in STORES:
-            argv = ["check", str(ROOT / store), "--device", str(self.dev)]
-            if delivery:
-                argv += ["--delivery", delivery]
-            buf = io.StringIO()
-            fused_queue_stats.launches = 0
-            with contextlib.redirect_stdout(buf):
-                rc = cli(argv)
-            torch.cuda.synchronize()
-            launches = fused_queue_stats.launches
+            with tempfile.TemporaryDirectory() as tmp:
+                # check writes results, graphs and caches into the run dir
+                run = Path(tmp) / "run"
+                run.mkdir()
+                for name in ("history.jsonl", "results.json", "history.jtc"):
+                    if (ROOT / store / name).is_file():
+                        shutil.copy2(ROOT / store / name, run / name)
+                argv = ["check", str(run), "--device", str(self.dev)]
+                if delivery:
+                    argv += ["--delivery", delivery]
+                buf = io.StringIO()
+                fused_queue_stats.launches = 0
+                with contextlib.redirect_stdout(buf):
+                    rc = cli(argv)
+                torch.cuda.synchronize()
+                launches = fused_queue_stats.launches
+                graphs = sorted(p.name for p in run.glob("*.png"))
             *body, banner = buf.getvalue().rstrip("\n").split("\n")
             got = json.loads("\n".join(body))
             want = json.loads((ROOT / store / "results.json").read_text())
@@ -452,11 +493,29 @@ class Smoke:
                     if not same:
                         raise AssertionError(
                             f"{store}: {fam}[{key!r}] = {g!r}, recorded {val!r}")
-            valid = merge_valid([got["queue"][VALID], got["linear"][VALID]])
+            perf = got["perf"]
+            for key, val in want["perf"].items():
+                if not isinstance(val, dict):
+                    if perf[key] != val:
+                        raise AssertionError(f"{store}: perf[{key!r}]")
+                    continue
+                g = perf[key]
+                if g[VALID] is not True or (
+                    Path(g["file"]).name != Path(val["file"]).name
+                    if "file" in g else g.get("error") != MATPLOTLIB_MISSING
+                ):
+                    raise AssertionError(f"{store}: perf[{key!r}] = {g!r}, "
+                                         f"recorded {val!r}")
+            self.matplotlib = "file" in perf["latency-graph"]
+            if self.matplotlib and graphs != ["latency-raw.png", "rate.png"]:
+                raise AssertionError(f"{store}: graphs written: {graphs}")
+            valid = merge_valid([got[f][VALID] for f in ("perf", "queue",
+                                                          "linear")])
             if launches <= 0 or rc != (0 if valid is True else 1):
                 raise AssertionError(f"{store}: rc={rc} launches={launches}")
             print(f"recorded: {store}: queue/linear == results.json "
                   f"({sum(len(want[f]) for f in ('queue', 'linear'))} keys), "
+                  f"perf graphs {graphs or perf['latency-graph']['error']}, "
                   f"K1 launches={launches}, {banner}")
 
     def timing_phase(self):
@@ -468,6 +527,7 @@ class Smoke:
             fused_queue_stats,
             queue_stats_plain,
         )
+        from jepsen_tpu_torch.parallel.staging import StagingRing
         from jepsen_tpu_torch.timing import event_ms, queued_ms
 
         g, host = self.g, self.host
@@ -508,19 +568,37 @@ class Smoke:
             p = dataclasses.replace(g, **dev_cols, **blank)
             return combined_tensor_check(p, packed_out=True)
 
-        for _ in range(2):
-            copied_check()
-        torch.cuda.synchronize()
-        n = 10
-        t0 = time.perf_counter()
-        for _ in range(n):
-            copied_check()
-        torch.cuda.synchronize()
-        copy_ms = (time.perf_counter() - t0) / n * 1e3
+        ring = StagingRing(self.dev, depth=2)
+        compute = torch.cuda.current_stream(self.dev)
+        host_b = dataclasses.replace(host, **tiled, **{
+            k: getattr(host, k).repeat(B // host.batch, 1)
+            for k in TENSOR_FIELDS if k not in cols})
+
+        def ring_check():
+            # what the pipeline's place and check stages do: fill a pinned
+            # slot, copy it on the side stream, check on the compute stream
+            return combined_tensor_check(ring.stage(host_b, compute),
+                                         packed_out=True)
+
+        pinned = {k: t.pin_memory() for k, t in tiled.items()}
+
+        def prefilled_check():
+            dev_cols = {k: t.to(self.dev, non_blocking=True)
+                        for k, t in pinned.items()}
+            p = dataclasses.replace(g, **dev_cols, **blank)
+            return combined_tensor_check(p, packed_out=True)
+
+        copy_ms = _host_ms(copied_check)
+        ring_ms = _host_ms(ring_check)
+        prefilled_ms = _host_ms(prefilled_check)
         print(f"timing: device check (K1 + both classifiers, packed out) "
               f"{check_ms:.6f} ms = {B / check_ms * 1e3:.1f} histories/s "
-              f"without the host->device copy; {copy_ms:.6f} ms = "
-              f"{B / copy_ms * 1e3:.1f} histories/s with it, on {self.card}")
+              f"without the host->device copy; with it {copy_ms:.6f} ms = "
+              f"{B / copy_ms * 1e3:.1f} histories/s from pageable memory, "
+              f"{ring_ms:.6f} ms = {B / ring_ms * 1e3:.1f} histories/s "
+              f"through the pinned staging ring (slot filled on the host), "
+              f"{prefilled_ms:.6f} ms from pinned memory already filled, "
+              f"on {self.card}")
         self.timing = {
             "B": B, "L": L, "V": V, "k1_ms": ms, "plain_ms": plain_ms,
             "k1_device_ms": device_ms, "k1_host_us": host_us,
@@ -528,12 +606,177 @@ class Smoke:
             "queue_lin_classify_ms": ql_ms, "device_check_ms": check_ms,
             "device_check_hist_per_s": B / check_ms * 1e3,
             "with_copy_ms": copy_ms, "with_copy_hist_per_s": B / copy_ms * 1e3,
+            "with_copy_pinned_ring_ms": ring_ms,
+            "with_copy_pinned_ring_hist_per_s": B / ring_ms * 1e3,
+            "with_copy_pinned_prefilled_ms": prefilled_ms,
         }
         self.kernel.update(
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes"
             if bytes_ms >= ops_ms else "operations", library_ms=None,
             device_ms=device_ms, host_us=host_us,
         )
+
+    def pipeline_phase(self):
+        from jepsen_tpu_torch.__main__ import bench_check_pipeline
+        from jepsen_tpu_torch.checkers.queue_lin import check_queue_lin_cpu
+        from jepsen_tpu_torch.checkers.total_queue import check_total_queue_cpu
+        from jepsen_tpu_torch.history.encode import pack_histories
+        from jepsen_tpu_torch.history.rows import _rows_for
+        from jepsen_tpu_torch.history.synth import SynthSpec, synth_batch
+        from jepsen_tpu_torch.ops.queue_stats import fused_queue_stats
+        from jepsen_tpu_torch.parallel.pipeline import _pow2_bucket
+        from jepsen_tpu_torch.timing import BASE_HISTORIES, MAIN_B, N_OPS
+        from jepsen_tpu_torch.timing import event_ms, queued_ms
+
+        half = BASE_HISTORIES // 2
+        spec = SynthSpec(n_ops=N_OPS, n_processes=5)
+        hs = [sh.ops for sh in synth_batch(half, spec)] + [
+            sh.ops for sh in synth_batch(
+                half, dataclasses.replace(spec, seed=half),
+                lost=1, duplicated=1)]
+        reps = MAIN_B // BASE_HISTORIES
+        oracle = [{"queue": check_total_queue_cpu(h),
+                   "linear": check_queue_lin_cpu(h, "exactly-once")}
+                  for h in hs]
+        texts = ["".join(json.dumps(op.to_json()) + "\n" for op in h)
+                 for h in hs]
+        with tempfile.TemporaryDirectory() as tmp:
+            store = Path(tmp) / "store"
+            t0 = time.perf_counter()
+            # sorted walk order: rep-major, so history k is hs[k % 128]
+            for r in range(reps):
+                for i, text in enumerate(texts):
+                    d = store / f"r{r:02d}" / f"h{i:03d}"
+                    d.mkdir(parents=True)
+                    (d / "history.jsonl").write_text(text)
+            n = reps * len(hs)
+            nbytes = sum(len(t) for t in texts) * reps
+            print(f"pipeline: wrote {n} histories ({nbytes} bytes of JSONL) "
+                  f"in {time.perf_counter() - t0:.2f} s")
+            passes = [("cold", 64, False), ("warm", 64, False),
+                      ("warm serial", 64, True), ("warm", 1024, False)]
+            maps = {}
+            for name, chunk, serial in passes:
+                torch.cuda.synchronize()
+                fused_queue_stats.launches = 0
+                fused_queue_stats.last_path = None
+                t0 = time.perf_counter()
+                summary, results, stats = bench_check_pipeline(
+                    store, chunk=chunk, serial=serial, device=str(self.dev))
+                call_s = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                launches = fused_queue_stats.launches
+                print(json.dumps(summary))
+                want_launches = math.ceil(n / chunk)
+                if (summary["histories"], summary["invalid"],
+                        summary["quarantined"]) != (n, n // 2, 0):
+                    raise AssertionError(f"pipeline {name} chunk {chunk}: "
+                                         f"{summary}")
+                if (launches, fused_queue_stats.last_path) != (
+                        want_launches, "vector"):
+                    raise AssertionError(
+                        f"pipeline {name} chunk {chunk}: K1 launched "
+                        f"{launches} times (want {want_launches}), last on "
+                        f"the {fused_queue_stats.last_path} path")
+                for k, r in enumerate(results):
+                    if r != oracle[k % len(hs)]:
+                        raise AssertionError(
+                            f"pipeline {name} chunk {chunk}: history {k} "
+                            "differs from the CPU oracles")
+                if name == "cold" and len(list(store.glob("*/*/history.jtc"))
+                                          ) != n:
+                    raise AssertionError("the cold pass left no .jtc caches")
+                maps[(name, chunk)] = results
+                rec = {
+                    "pass": name, "chunk": chunk, "mode": summary["mode"],
+                    "histories": n, "batches": stats.batches,
+                    "invalid": summary["invalid"],
+                    "quarantined": summary["quarantined"],
+                    "k1_launches": launches, "wall_s": stats.wall_s,
+                    "classify_s": summary["classify_s"], "call_s": call_s,
+                    "pipeline_e2e_histories_per_sec":
+                        summary["pipeline_e2e_histories_per_sec"],
+                    "device_idle_frac": stats.device_idle_frac,
+                    "stage_overlap_frac": stats.stage_overlap_frac,
+                    "produce_busy_s": stats.produce_busy_s,
+                    "place_busy_s": stats.place_busy_s,
+                    "check_busy_s": stats.check_busy_s,
+                }
+                self.pipeline.setdefault("passes", []).append(rec)
+                print(f"pipeline: {name} chunk {chunk}: {n} histories, "
+                      f"{launches} K1 launches (vector), "
+                      f"{rec['pipeline_e2e_histories_per_sec']:.1f} "
+                      f"histories/s over wall {stats.wall_s:.6f} s "
+                      f"after {summary['classify_s']:.6f} s of "
+                      f"classification (the whole call with the walk and "
+                      f"result maps {call_s:.6f} s), no batch in flight "
+                      f"(device_idle_frac) {stats.device_idle_frac:.4f}, "
+                      f"stage overlap "
+                      f"{stats.stage_overlap_frac:.4f}, busy s produce "
+                      f"{stats.produce_busy_s:.6f} place "
+                      f"{stats.place_busy_s:.6f} check "
+                      f"{stats.check_busy_s:.6f}, on {self.card}")
+            if maps[("warm serial", 64)] != maps[("warm", 64)]:
+                raise AssertionError("serial and overlapped maps differ")
+            self.pipeline["producer_ms_per_history"] = _producer_breakdown(
+                sorted(store.glob("*/*/history.jsonl"))[:1024])
+            print(f"pipeline: the producer's work per history, over 1024 "
+                  f"stored histories: {self.pipeline['producer_ms_per_history']}"
+                  f" (ms), on {self.card}")
+        # K1 at the pipeline's batch: 64 histories, power-of-two L and V
+        mats = [_rows_for(h) for h in hs[:64]]
+        L = _pow2_bucket(max(m.shape[0] for m in mats))
+        V = _pow2_bucket(max(int(m[:, 4].max()) for m in mats) + 1)
+        packed = pack_histories(hs[:64], length=L, value_space=V,
+                                device=self.dev)
+        ms = event_ms(lambda: fused_queue_stats(packed), 50)
+        device_ms, host_us = queued_ms(lambda: fused_queue_stats(packed), 50)
+        if fused_queue_stats.last_path != "vector":
+            raise AssertionError("K1 left its vector path at B=64")
+        print(f"pipeline: K1 at B=64 L={L} V={V}: {ms:.6f} ms back to back "
+              f"through the wrapper, {device_ms:.6f} ms device time, "
+              f"wrapper host time {host_us:.3f} us per call, on {self.card}")
+        self.pipeline["k1_b64"] = {"B": 64, "L": L, "V": V, "ms": ms,
+                                   "device_ms": device_ms, "host_us": host_us}
+        self.kernel["pipeline_launches"] = [
+            r["k1_launches"] for r in self.pipeline["passes"]]
+
+
+def _producer_breakdown(paths) -> dict:
+    """Milliseconds per history of each piece of the pipeline's host
+    stage, timed alone over ``paths`` (whose ``.jtc`` exist): a cache
+    read (``load_rows_cache``), of which the ``.jtc`` file's bytes alone;
+    the host pack of 64-history chunks; and what a cold pass does
+    instead of the cache read, the native parse and the ``.jtc`` write."""
+    from jepsen_tpu_torch.history.encode import pack_row_matrices
+    from jepsen_tpu_torch.history.fastpack import pack_files
+    from jepsen_tpu_torch.history.rows import load_rows_cache, save_rows_cache
+    from jepsen_tpu_torch.parallel.pipeline import _pow2_bucket
+
+    out, n = {}, len(paths)
+    t0 = time.perf_counter()
+    mats = [load_rows_cache(p)[1] for p in paths]
+    out["cache_read"] = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    for p in paths:
+        p.with_suffix(".jtc").read_bytes()
+    out["jtc_bytes_read"] = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    for i in range(0, n, 64):
+        chunk = mats[i:i + 64]
+        pack_row_matrices(
+            chunk, length=_pow2_bucket(max(m.shape[0] for m in chunk)),
+            value_space=_pow2_bucket(max(int(m[:, 4].max()) for m in chunk)
+                                     + 1), device="cpu")
+    out["host_pack"] = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    parsed = pack_files(paths, use_jtc=False)
+    out["native_parse"] = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    for p, (workload, rows) in zip(paths, parsed):
+        save_rows_cache(p, workload, rows)
+    out["jtc_write"] = (time.perf_counter() - t0) / n * 1e3
+    return out
 
 
 def _record(rec: dict) -> None:
@@ -558,7 +801,8 @@ def main() -> int:
     # each phase with the phase it needs
     phases = [(s.card_phase, None), (s.build_phase, None),
               (s.exact_phase, "build_phase"), (s.main_phase, "build_phase"),
-              (s.recorded_phase, "build_phase"), (s.timing_phase, "main_phase")]
+              (s.recorded_phase, "build_phase"), (s.timing_phase, "main_phase"),
+              (s.pipeline_phase, "build_phase")]
     failed = []
     for phase, needs in phases:
         if needs in failed:
@@ -586,7 +830,8 @@ def main() -> int:
     }
     _record({"card": s.card, "torch": torch.__version__,
              "kernels": [kernel], "timing": s.timing, "build": s.build,
-             "exact": s.exact})
+             "exact": s.exact, "pipeline": s.pipeline,
+             "matplotlib": s.matplotlib})
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -60,6 +60,20 @@ def combined_tensor_check(
 fused_tensor_check = combined_tensor_check
 
 
+def queue_results(tq, ql, delivery: str, n: int | None = None,
+                  ) -> list[dict[str, Any]]:
+    """The verdict tensors of :func:`combined_tensor_check` → one
+    ``{"queue": …, "linear": …}`` pair of result maps for each of the
+    first ``n`` histories (all by default); each ``linear`` map records
+    its delivery contract, which a re-check inherits."""
+    out = []
+    for q, lin in zip(_tensors_to_results(tq)[:n],
+                      queue_lin_tensors_to_results(ql)[:n]):
+        lin["delivery"] = delivery
+        out.append({"queue": q, "linear": lin})
+    return out
+
+
 def check_queue_batch(
     histories: Sequence[Sequence[Op]],
     delivery: str = "exactly-once",
@@ -70,8 +84,4 @@ def check_queue_batch(
     tq, ql = combined_tensor_check(
         pack_histories(histories, device=device), delivery, packed_out=True
     )
-    out = []
-    for q, lin in zip(_tensors_to_results(tq), queue_lin_tensors_to_results(ql)):
-        lin["delivery"] = delivery
-        out.append({"queue": q, "linear": lin})
-    return out
+    return queue_results(tq, ql, delivery)

@@ -1,17 +1,35 @@
-"""Row explosion: histories -> ``[n, 8]`` int32 row matrices.
+"""Row explosion: histories -> ``[n, 8]`` int32 row matrices, and
+their store cache.
 
 The per-op half of packing (``encode.pack_histories`` = explosion +
 assembly).  A copy of the JAX package's ``_rows_for``, so that both
 packages explode a history into the same rows.
+
+Also the packed-row store cache: the ``[n, 8]`` matrix is a pure
+function of ``history.jsonl``, so it is kept beside the history and a
+later check loads it instead of parsing the JSONL again.  Its backing
+store is the ``.jtc`` columnar substrate (``history/columnar.py``); the
+older per-directory ``rows.npz`` is still read, and written when
+``JEPSEN_TPU_NO_JTC=1`` disables the substrate.  Both formats and their
+freshness rules are the JAX package's, so a store cached by one package
+is served to the other.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import threading
+import zipfile
+from pathlib import Path
 from typing import Sequence
 
 import numpy as np
 
 from jepsen_tpu_torch.history.ops import NO_VALUE, Op, OpType
+
+#: legacy cache file name, sibling of history.jsonl in a run dir
+ROWS_CACHE = "rows.npz"
 
 _COLUMNS = (
     "index", "process", "type", "f", "value", "time_ms", "latency_ms",
@@ -125,3 +143,145 @@ def _rows_for(history: Sequence[Op]) -> np.ndarray:
     out[:, 6] = np.where(first == 1, lat[rep], -1).astype(np.int32)
     out[:, 7] = first
     return out
+
+
+# ---------------------------------------------------------------------------
+# Packed-row store cache
+# ---------------------------------------------------------------------------
+
+
+def _history_digest(jsonl_path: Path) -> str:
+    h = hashlib.sha256()
+    with open(jsonl_path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def cache_path_for(jsonl_path: str | Path) -> Path:
+    return Path(jsonl_path).with_name(ROWS_CACHE)
+
+
+def save_rows_cache(
+    jsonl_path: str | Path,
+    workload: str,
+    rows: np.ndarray,
+) -> None:
+    """Keep the exploded ``[n, 8]`` matrix as the rows section of the
+    sibling ``.jtc`` (other sections of that file are kept); with the
+    substrate disabled, as the legacy npz.  Best-effort: a cache that
+    cannot be written never fails the check that tried to leave it."""
+    from jepsen_tpu_torch.history import columnar
+
+    if columnar.update_jtc(
+        jsonl_path, workload, rows=np.asarray(rows, np.int32)
+    ):
+        return
+    _save_rows_npz(jsonl_path, workload, rows)
+
+
+def _save_rows_npz(
+    jsonl_path: str | Path, workload: str, rows: np.ndarray
+) -> None:
+    """The legacy npz writer: stamped with the JSONL's (size, mtime_ns)
+    and content hash, atomic, best-effort."""
+    jsonl_path = Path(jsonl_path)
+    target = cache_path_for(jsonl_path)
+    tmp = target.with_name(
+        f"{ROWS_CACHE}.{os.getpid()}.{threading.get_ident()}.tmp"
+    )
+    try:
+        st = os.stat(jsonl_path)
+        meta = np.array(
+            [
+                workload,
+                _history_digest(jsonl_path),
+                str(st.st_size),
+                str(st.st_mtime_ns),
+            ]
+        )
+        with open(tmp, "wb") as fh:
+            np.savez(fh, rows=rows.astype(np.int32), meta=meta)
+        os.replace(tmp, target)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+
+
+def _load_cache(jsonl_path: Path) -> tuple[str, np.ndarray] | None:
+    """The legacy npz's freshness rule, two-tier: the stat fast path
+    trusts the cache without reading the JSONL only when the JSONL's
+    (size, mtime_ns) both match the stamp AND the cache file is strictly
+    newer than the JSONL (so a rewrite within one mtime tick is never
+    served stale); otherwise the content hash decides."""
+    target = cache_path_for(jsonl_path)
+    try:
+        cache_mtime = os.stat(target).st_mtime_ns
+        with np.load(target, allow_pickle=False) as z:
+            meta = [str(x) for x in z["meta"]]
+            rows = z["rows"]
+    except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+        return None
+    if len(meta) == 4:
+        workload, digest, size, mtime_ns = meta
+        try:
+            st = os.stat(jsonl_path)
+        except OSError:
+            return None
+        if (
+            str(st.st_size) == size
+            and str(st.st_mtime_ns) == mtime_ns
+            and cache_mtime > st.st_mtime_ns
+        ):
+            return workload, rows
+    else:  # the older hash-only format
+        workload, digest = meta[:2]
+    if digest != _history_digest(jsonl_path):
+        return None
+    return workload, rows
+
+
+def load_rows_cache(
+    jsonl_path: str | Path,
+) -> tuple[str, np.ndarray] | None:
+    """``(workload, rows)`` when a fresh cache exists for this source;
+    None when absent, unreadable or stale.  The ``.jtc`` first, then the
+    legacy npz.  A corrupt ``.jtc`` is logged and counts as a miss."""
+    from jepsen_tpu_torch.history import columnar
+
+    jtc = columnar.consult(jsonl_path)
+    if jtc is not None:
+        rows = jtc.rows()
+        if rows is not None and jtc.workload is not None:
+            return jtc.workload, rows
+    got = _load_cache(Path(jsonl_path))
+    if got is None:
+        return None
+    workload, rows = got
+    return workload, np.asarray(rows, np.int32)
+
+
+def rows_with_cache(jsonl_path: str | Path) -> tuple[str, np.ndarray, bool]:
+    """Load-through cache: ``(workload, rows, was_hit)``.  A miss packs
+    the source (the native packer first, which returns None on input it
+    flags; then the Python path, which raises the canonical error) and
+    leaves the cache behind."""
+    from jepsen_tpu_torch.history.fastpack import pack_file
+    from jepsen_tpu_torch.history.ops import workload_of
+    from jepsen_tpu_torch.history.store import read_history
+
+    cached = load_rows_cache(jsonl_path)
+    if cached is not None:
+        return (*cached, True)
+    fast = pack_file(jsonl_path)
+    if fast is not None:
+        workload, rows = fast
+        save_rows_cache(jsonl_path, workload, rows)
+        return workload, rows, False
+    history = read_history(jsonl_path)
+    workload = workload_of(history)
+    rows = _rows_for(history)
+    save_rows_cache(jsonl_path, workload, rows)
+    return workload, rows, False

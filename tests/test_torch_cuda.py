@@ -1,4 +1,6 @@
-"""The port's CUDA kernel against its plain PyTorch version on the card.
+"""The port on the card against its plain PyTorch version: the CUDA
+kernel, the pipeline executor with its pinned staging ring, and
+``perf``.
 
 This file imports no JAX, so that it runs where the card is:
 
@@ -11,12 +13,14 @@ inputs of both of K1's load paths, are shared with the CPU tests of
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from jepsen_tpu_torch.checkers.fused import combined_tensor_check
+from jepsen_tpu_torch.checkers.perf import perf_tensor_check
 from jepsen_tpu_torch.checkers.queue_lin import queue_lin_tensor_check
 from jepsen_tpu_torch.checkers.total_queue import total_queue_tensor_check
 from jepsen_tpu_torch.history.encode import (
@@ -24,8 +28,10 @@ from jepsen_tpu_torch.history.encode import (
     from_reference_arrays,
     pack_histories,
 )
+from jepsen_tpu_torch.history.store import write_history_jsonl
 from jepsen_tpu_torch.history.synth import SynthSpec, synth_batch
 from jepsen_tpu_torch.ops.queue_stats import fused_queue_stats, queue_stats_plain
+from jepsen_tpu_torch.parallel.pipeline import check_sources
 
 
 @pytest.fixture
@@ -198,3 +204,72 @@ def test_launcher_chooses_the_load_path(cuda_device, L, V, shift, path):
                            V, pos)
     for f in "aexdst":
         assert torch.equal(getattr(k, f), getattr(pl, f)), f
+
+
+def queue_store(root, n: int):
+    """``n`` synthetic queue histories with assorted anomalies, one run
+    directory each, in sorted order."""
+    kinds = ({}, {"lost": 1}, {"duplicated": 1}, {"unexpected": 1},
+             {"phantom_fail": 1}, {"causality": 1})
+    paths = []
+    for i in range(n):
+        sh = synth_batch(1, SynthSpec(n_ops=30 + 5 * (i % 9), seed=i),
+                         **kinds[i % len(kinds)])[0]
+        d = root / f"run{i:03d}"
+        d.mkdir(parents=True)
+        write_history_jsonl(d / "history.jsonl", sh.ops)
+        paths.append(d / "history.jsonl")
+    return paths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delivery", ["exactly-once", "at-least-once"])
+def test_pipeline_on_the_card_equals_the_cpu_path(cuda_device, tmp_path,
+                                                  delivery):
+    paths = queue_store(tmp_path, 20)
+    want, _ = check_sources("queue", paths, chunk=8, delivery=delivery,
+                            device="cpu")
+    fused_queue_stats.launches = 0
+    got, stats = check_sources("queue", paths, chunk=8, delivery=delivery,
+                               device=cuda_device)
+    assert fused_queue_stats.launches == 3  # ceil(20 / 8), one per batch
+    assert fused_queue_stats.last_path == "vector"
+    assert got == want and stats.quarantined == 0
+    serial, _ = check_sources("queue", paths, chunk=8, delivery=delivery,
+                              device=cuda_device, serial=True)
+    assert serial == want
+
+
+@pytest.mark.cuda
+def test_pinned_ring_under_stress(cuda_device, tmp_path):
+    """Depth 2 and chunks of 4: a slot refilled while its copy is still
+    in flight would change some batch's verdicts."""
+    paths = queue_store(tmp_path, 64)
+    want, _ = check_sources("queue", paths, chunk=4, device="cpu")
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for _ in range(3):
+            got, stats = check_sources("queue", paths, chunk=4, depth=2,
+                                       device=cuda_device)
+            assert got == want and stats.quarantined == 0
+    finally:
+        sys.setswitchinterval(interval)
+    serial, _ = check_sources("queue", paths, chunk=4, depth=2,
+                              device=cuda_device, serial=True)
+    assert serial == want
+
+
+@pytest.mark.cuda
+def test_perf_on_the_card_equals_the_cpu(cuda_device):
+    hs = [s.ops for s in synth_batch(8, SynthSpec(n_ops=150), lost=1)]
+    hs.append([])
+    packed = pack_histories(hs, device="cpu")
+    want = perf_tensor_check(packed)
+    got = perf_tensor_check(_to(packed, cuda_device))
+    for f in dataclasses.fields(want):
+        w, g = getattr(want, f.name), getattr(got, f.name).cpu()
+        assert g.dtype == w.dtype, f.name
+        if w.dtype == torch.float32:
+            w, g = w.view(torch.int32), g.view(torch.int32)  # bit for bit
+        assert torch.equal(g, w), f.name

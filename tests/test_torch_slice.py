@@ -5,6 +5,7 @@ recorded runs."""
 import contextlib
 import io
 import json
+import shutil
 from pathlib import Path
 
 import jax
@@ -72,8 +73,10 @@ def _cli(argv):
 
 
 @pytest.mark.parametrize("store", STORES)
-def test_cli_check_equals_reference_on_recorded_run(store):
-    run = REPO / store
+def test_cli_check_equals_reference_on_recorded_run(store, tmp_path):
+    # on a copy: check writes results, graphs and caches into the run
+    run = tmp_path / "run"
+    shutil.copytree(REPO / store, run)
     recorded = json.loads((run / "results.json").read_text())
     delivery = recorded["linear"].get("delivery", "exactly-once")
     rc, got, banner = _cli(["check", "--device", "cpu", str(run)])
