@@ -46,9 +46,30 @@ Phases, each of which fails the run when it fails:
    oracles' maps, launch K1 once per batch on its vector path, and
    serial must equal overlapped; then the producer's work per history
    (cache read, native parse, ``.jtc`` write, host pack) timed alone,
-   and K1 timed at the pipeline's batch of 64 histories.
+   and K1 timed at the pipeline's batch of 64 histories;
+8. ``bench-check`` without ``--pipeline`` (``__main__.bench_check``):
+   phase 7's store twice, the first run writing the store-level packed
+   cache and the second checking all 10,240 histories from it in one K1
+   call (L=1024, V=256; 5,120 invalid), then 1024 synthetic histories of
+   1000 ops packed by ``min(8, cores)`` worker processes (999 invalid,
+   the JAX package's count on the same seeds); each run prints
+   ``pack_s``, ``check_s``, ``histories_per_sec`` and ``invalid``; K1 at
+   the store's shape against its plain version, timed; and one
+   ``--profile`` run, whose ten longest device operations it prints;
+9. the segmented engine (``check --segment-ops 65536``) over a
+   1,000,016-op queue history (SEGMENTED.md's configuration, written by
+   :func:`write_long_history`) with one lost value and one duplicate
+   across segment boundaries: through JSONL, then through the ``.jtc``
+   the monolithic ``check`` of the file leaves, then killed after
+   segment 7 (``JEPSEN_TPU_SEG_DIE_AFTER``) and resumed; every run's
+   maps equal the monolithic check's, ``resumed`` only on the resumed
+   run, no quarantine, one K1 launch per segment (the shapes printed);
+   the per-segment p50/p99, the stats and merge halves timed apart, and
+   K1 at the segment shapes B=1 × L=65,536 × V=32,768 (int16) and
+   V=65,536 (int32) with ``[L]`` pos, against its plain version, timed.
 
-The second-to-last line is the kernel table as JSON; the last line is
+The second-to-last line is the kernel table as JSON (K1's entry lists
+its bench and segment shapes under ``shapes``); the last line is
 ``{"ok": true, "device": {...}}``.  A good run also appends its kernel
 table, build report and timings, with the card, to
 ``chiprun_out/chip_smoke.jsonl``.  Without a CUDA device, or without the
@@ -57,11 +78,14 @@ package beside it, the script exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
 import json
 import math
+import os
+import random
 import re
 import shutil
 import subprocess
@@ -340,6 +364,10 @@ class Smoke:
         self.exact = []
         self.matplotlib = None
         self.pipeline = {}
+        self.bench = {}
+        self.segmented = {}
+        self.shapes = []  # K1's shapes on the bench and segmented paths
+        self.tmp = Path(tempfile.mkdtemp(prefix="chip_smoke-"))
 
     def card_phase(self):
         name = torch.cuda.get_device_name(0)
@@ -640,89 +668,88 @@ class Smoke:
                   for h in hs]
         texts = ["".join(json.dumps(op.to_json()) + "\n" for op in h)
                  for h in hs]
-        with tempfile.TemporaryDirectory() as tmp:
-            store = Path(tmp) / "store"
+        store = self.tmp / "store"  # the bench phase reads it again
+        t0 = time.perf_counter()
+        # sorted walk order: rep-major, so history k is hs[k % 128]
+        for r in range(reps):
+            for i, text in enumerate(texts):
+                d = store / f"r{r:02d}" / f"h{i:03d}"
+                d.mkdir(parents=True)
+                (d / "history.jsonl").write_text(text)
+        n = reps * len(hs)
+        nbytes = sum(len(t) for t in texts) * reps
+        print(f"pipeline: wrote {n} histories ({nbytes} bytes of JSONL) "
+              f"in {time.perf_counter() - t0:.2f} s")
+        passes = [("cold", 64, False), ("warm", 64, False),
+                  ("warm serial", 64, True), ("warm", 1024, False)]
+        maps = {}
+        for name, chunk, serial in passes:
+            torch.cuda.synchronize()
+            fused_queue_stats.launches = 0
+            fused_queue_stats.last_path = None
             t0 = time.perf_counter()
-            # sorted walk order: rep-major, so history k is hs[k % 128]
-            for r in range(reps):
-                for i, text in enumerate(texts):
-                    d = store / f"r{r:02d}" / f"h{i:03d}"
-                    d.mkdir(parents=True)
-                    (d / "history.jsonl").write_text(text)
-            n = reps * len(hs)
-            nbytes = sum(len(t) for t in texts) * reps
-            print(f"pipeline: wrote {n} histories ({nbytes} bytes of JSONL) "
-                  f"in {time.perf_counter() - t0:.2f} s")
-            passes = [("cold", 64, False), ("warm", 64, False),
-                      ("warm serial", 64, True), ("warm", 1024, False)]
-            maps = {}
-            for name, chunk, serial in passes:
-                torch.cuda.synchronize()
-                fused_queue_stats.launches = 0
-                fused_queue_stats.last_path = None
-                t0 = time.perf_counter()
-                summary, results, stats = bench_check_pipeline(
-                    store, chunk=chunk, serial=serial, device=str(self.dev))
-                call_s = time.perf_counter() - t0
-                torch.cuda.synchronize()
-                launches = fused_queue_stats.launches
-                print(json.dumps(summary))
-                want_launches = math.ceil(n / chunk)
-                if (summary["histories"], summary["invalid"],
-                        summary["quarantined"]) != (n, n // 2, 0):
-                    raise AssertionError(f"pipeline {name} chunk {chunk}: "
-                                         f"{summary}")
-                if (launches, fused_queue_stats.last_path) != (
-                        want_launches, "vector"):
+            summary, results, stats = bench_check_pipeline(
+                store, chunk=chunk, serial=serial, device=str(self.dev))
+            call_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = fused_queue_stats.launches
+            print(json.dumps(summary))
+            want_launches = math.ceil(n / chunk)
+            if (summary["histories"], summary["invalid"],
+                    summary["quarantined"]) != (n, n // 2, 0):
+                raise AssertionError(f"pipeline {name} chunk {chunk}: "
+                                     f"{summary}")
+            if (launches, fused_queue_stats.last_path) != (
+                    want_launches, "vector"):
+                raise AssertionError(
+                    f"pipeline {name} chunk {chunk}: K1 launched "
+                    f"{launches} times (want {want_launches}), last on "
+                    f"the {fused_queue_stats.last_path} path")
+            for k, r in enumerate(results):
+                if r != oracle[k % len(hs)]:
                     raise AssertionError(
-                        f"pipeline {name} chunk {chunk}: K1 launched "
-                        f"{launches} times (want {want_launches}), last on "
-                        f"the {fused_queue_stats.last_path} path")
-                for k, r in enumerate(results):
-                    if r != oracle[k % len(hs)]:
-                        raise AssertionError(
-                            f"pipeline {name} chunk {chunk}: history {k} "
-                            "differs from the CPU oracles")
-                if name == "cold" and len(list(store.glob("*/*/history.jtc"))
-                                          ) != n:
-                    raise AssertionError("the cold pass left no .jtc caches")
-                maps[(name, chunk)] = results
-                rec = {
-                    "pass": name, "chunk": chunk, "mode": summary["mode"],
-                    "histories": n, "batches": stats.batches,
-                    "invalid": summary["invalid"],
-                    "quarantined": summary["quarantined"],
-                    "k1_launches": launches, "wall_s": stats.wall_s,
-                    "classify_s": summary["classify_s"], "call_s": call_s,
-                    "pipeline_e2e_histories_per_sec":
-                        summary["pipeline_e2e_histories_per_sec"],
-                    "device_idle_frac": stats.device_idle_frac,
-                    "stage_overlap_frac": stats.stage_overlap_frac,
-                    "produce_busy_s": stats.produce_busy_s,
-                    "place_busy_s": stats.place_busy_s,
-                    "check_busy_s": stats.check_busy_s,
-                }
-                self.pipeline.setdefault("passes", []).append(rec)
-                print(f"pipeline: {name} chunk {chunk}: {n} histories, "
-                      f"{launches} K1 launches (vector), "
-                      f"{rec['pipeline_e2e_histories_per_sec']:.1f} "
-                      f"histories/s over wall {stats.wall_s:.6f} s "
-                      f"after {summary['classify_s']:.6f} s of "
-                      f"classification (the whole call with the walk and "
-                      f"result maps {call_s:.6f} s), no batch in flight "
-                      f"(device_idle_frac) {stats.device_idle_frac:.4f}, "
-                      f"stage overlap "
-                      f"{stats.stage_overlap_frac:.4f}, busy s produce "
-                      f"{stats.produce_busy_s:.6f} place "
-                      f"{stats.place_busy_s:.6f} check "
-                      f"{stats.check_busy_s:.6f}, on {self.card}")
-            if maps[("warm serial", 64)] != maps[("warm", 64)]:
-                raise AssertionError("serial and overlapped maps differ")
-            self.pipeline["producer_ms_per_history"] = _producer_breakdown(
-                sorted(store.glob("*/*/history.jsonl"))[:1024])
-            print(f"pipeline: the producer's work per history, over 1024 "
-                  f"stored histories: {self.pipeline['producer_ms_per_history']}"
-                  f" (ms), on {self.card}")
+                        f"pipeline {name} chunk {chunk}: history {k} "
+                        "differs from the CPU oracles")
+            if name == "cold" and len(list(store.glob("*/*/history.jtc"))
+                                      ) != n:
+                raise AssertionError("the cold pass left no .jtc caches")
+            maps[(name, chunk)] = results
+            rec = {
+                "pass": name, "chunk": chunk, "mode": summary["mode"],
+                "histories": n, "batches": stats.batches,
+                "invalid": summary["invalid"],
+                "quarantined": summary["quarantined"],
+                "k1_launches": launches, "wall_s": stats.wall_s,
+                "classify_s": summary["classify_s"], "call_s": call_s,
+                "pipeline_e2e_histories_per_sec":
+                    summary["pipeline_e2e_histories_per_sec"],
+                "device_idle_frac": stats.device_idle_frac,
+                "stage_overlap_frac": stats.stage_overlap_frac,
+                "produce_busy_s": stats.produce_busy_s,
+                "place_busy_s": stats.place_busy_s,
+                "check_busy_s": stats.check_busy_s,
+            }
+            self.pipeline.setdefault("passes", []).append(rec)
+            print(f"pipeline: {name} chunk {chunk}: {n} histories, "
+                  f"{launches} K1 launches (vector), "
+                  f"{rec['pipeline_e2e_histories_per_sec']:.1f} "
+                  f"histories/s over wall {stats.wall_s:.6f} s "
+                  f"after {summary['classify_s']:.6f} s of "
+                  f"classification (the whole call with the walk and "
+                  f"result maps {call_s:.6f} s), no batch in flight "
+                  f"(device_idle_frac) {stats.device_idle_frac:.4f}, "
+                  f"stage overlap "
+                  f"{stats.stage_overlap_frac:.4f}, busy s produce "
+                  f"{stats.produce_busy_s:.6f} place "
+                  f"{stats.place_busy_s:.6f} check "
+                  f"{stats.check_busy_s:.6f}, on {self.card}")
+        if maps[("warm serial", 64)] != maps[("warm", 64)]:
+            raise AssertionError("serial and overlapped maps differ")
+        self.pipeline["producer_ms_per_history"] = _producer_breakdown(
+            sorted(store.glob("*/*/history.jsonl"))[:1024])
+        print(f"pipeline: the producer's work per history, over 1024 "
+              f"stored histories: {self.pipeline['producer_ms_per_history']}"
+              f" (ms), on {self.card}")
         # K1 at the pipeline's batch: 64 histories, power-of-two L and V
         mats = [_rows_for(h) for h in hs[:64]]
         L = _pow2_bucket(max(m.shape[0] for m in mats))
@@ -740,6 +767,446 @@ class Smoke:
                                    "device_ms": device_ms, "host_us": host_us}
         self.kernel["pipeline_launches"] = [
             r["k1_launches"] for r in self.pipeline["passes"]]
+
+
+    def bench_phase(self):
+        """``bench-check`` without ``--pipeline``: phase 7's store twice
+        (the first run writes the store-level packed cache, the second
+        checks all 10,240 histories from it in one K1 call), once more
+        under ``--profile``, then 1024 synthetic histories of 1000 ops
+        packed by worker processes."""
+        from jepsen_tpu_torch.__main__ import PROFILE_TRACE, bench_check
+        from jepsen_tpu_torch.history.storecache import STORE_CACHE
+        from jepsen_tpu_torch.ops.queue_stats import fused_queue_stats
+
+        store = self.tmp / "store"
+        n = len(list(store.glob("*/*/history.jsonl")))
+        (store / STORE_CACHE).unlink(missing_ok=True)
+        cores = len(os.sched_getaffinity(0))
+        workers = min(8, cores) if cores > 1 else 0
+        runs = [
+            ("store, cache written", dict(histories=store), n, n // 2),
+            ("store, cache hit", dict(histories=store), n, n // 2),
+            ("synthetic", dict(count=SYNTH_COUNT, ops=SYNTH_OPS,
+                               workers=workers), SYNTH_COUNT, SYNTH_INVALID),
+        ]
+        for name, kw, want_n, want_invalid in runs:
+            torch.cuda.synchronize()
+            fused_queue_stats.launches = 0
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                summary = bench_check(device=str(self.dev), **kw)
+            call_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = fused_queue_stats.launches
+            print(json.dumps(summary))
+            hit = "store cache hit" in err.getvalue()
+            if (summary["histories"], summary["invalid"], launches) != (
+                    want_n, want_invalid, 2):
+                raise AssertionError(
+                    f"bench {name}: {summary}, {launches} K1 launches (want "
+                    f"{want_n} histories, {want_invalid} invalid, 2 launches)")
+            if hit != (name == "store, cache hit"):
+                raise AssertionError(f"bench {name}: store cache hit={hit}")
+            if name == "store, cache written" and not (
+                    store / STORE_CACHE).is_file():
+                raise AssertionError("bench: no store cache was written")
+            rec = {"run": name, **summary, "k1_launches": launches,
+                   "call_s": call_s, "workers": kw.get("workers", 0)}
+            self.bench.setdefault("runs", []).append(rec)
+            print(f"bench: {name}: {summary['histories']} histories at "
+                  f"L={summary['ops_per_history']}, pack_s "
+                  f"{summary['pack_s']}, check_s {summary['check_s']}, "
+                  f"{summary['histories_per_sec']} histories/s, invalid "
+                  f"{summary['invalid']}, {launches} K1 launches (warm-up "
+                  f"and timed, each over the whole batch), the whole call "
+                  f"{call_s:.6f} s, on {self.card}")
+        self.shapes.append({"phase": "bench", **self._bench_k1_timing(store),
+                            "launches": self.bench["runs"][1]["k1_launches"]})
+        prof = self.tmp / "profile"
+        with contextlib.redirect_stderr(io.StringIO()):
+            bench_check(store, profile=prof, device=str(self.dev))
+        self.bench["top_device_ops"] = top = _device_ops(prof / PROFILE_TRACE)
+        print(f"bench: profile of a cache-hit run (the pack's copies, the "
+              f"warm-up and the timed check): {top['device_ops']} device "
+              f"operations, {top['device_us']} us of device time in all, of "
+              f"which {top['kernels']} kernels {top['kernel_us']} us, K1 "
+              f"{top['k1_us']} us, on {self.card}")
+        for op in top["longest"]:
+            print(f"bench: profile: {op['dur_us']} us {op['name']}")
+        for name, tot in top["by_name"]:
+            print(f"bench: profile: {tot} us in all: {name}")
+
+    def _bench_k1_timing(self, store: Path) -> dict:
+        """K1 at the bench's shape (every history of the store in one
+        call), from the store-level cache: exact against the plain
+        version, timed, and its bound."""
+        from jepsen_tpu_torch.history.encode import TENSOR_FIELDS
+        from jepsen_tpu_torch.history.store import history_paths
+        from jepsen_tpu_torch.history.storecache import load_packed_store_cache
+        from jepsen_tpu_torch.ops.queue_stats import (
+            fused_queue_stats,
+            queue_stats_plain,
+        )
+        from jepsen_tpu_torch.timing import event_ms, queued_ms
+
+        t0 = time.perf_counter()
+        paths = history_paths(store)
+        t1 = time.perf_counter()
+        host = load_packed_store_cache(store, paths)
+        t2 = time.perf_counter()
+        self.bench["cache_hit_walk_s"] = t1 - t0
+        self.bench["cache_hit_load_s"] = t2 - t1
+        print(f"bench: a cache hit's host work before the pack: the store "
+              f"walk {t1 - t0:.6f} s, the cache's stat check and load "
+              f"{t2 - t1:.6f} s, for {len(paths)} histories, on {self.card}")
+        g = dataclasses.replace(host, **{
+            k: getattr(host, k).to(self.dev) for k in TENSOR_FIELDS})
+        B, L, V = g.batch, g.length, g.value_space
+        k = fused_queue_stats(g)
+        pl = queue_stats_plain(g.f, g.type, g.value, g.mask, V)
+        torch.cuda.synchronize()
+        err = _stats_err(k, pl)
+        _equal_fields(k, pl, "K1 vs plain at the bench shape")
+        ms = event_ms(lambda: fused_queue_stats(g), 50)
+        plain_ms = event_ms(lambda: queue_stats_plain(
+            g.f, g.type, g.value, g.mask, V), 10)
+        device_ms, host_us = queued_ms(lambda: fused_queue_stats(g), 50)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (g.f, g.type, g.value, g.mask)) + B * 6 * V * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = OPS_PER_ROW * B * L / INT32_OPS_PER_S * 1e3
+        print(f"bench: K1 at B={B} L={L} V={V}: {ms:.6f} ms back to back, "
+              f"{device_ms:.6f} ms device time "
+              f"({max(bytes_ms, ops_ms) / device_ms:.1%} of the "
+              f"{max(bytes_ms, ops_ms):.6f} ms bound, {nbytes} bytes), "
+              f"wrapper host time {host_us:.3f} us, plain {plain_ms:.6f} ms, "
+              f"max_abs_err {err}, {fused_queue_stats.last_path} path, on "
+              f"{self.card}")
+        return {"B": B, "L": L, "V": V,
+                "value": str(g.value.dtype).removeprefix("torch."),
+                "pos": None, "ms": ms, "device_ms": device_ms,
+                "host_us": host_us, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "max_abs_err": err,
+                "load_path": fused_queue_stats.last_path}
+
+    def segmented_phase(self):
+        """``check --segment-ops 65536`` over a 1,000,016-op queue history
+        with one lost value and one duplicate across segment boundaries:
+        through JSONL, through ``.jtc`` (left by the monolithic ``check``),
+        and killed after segment 7 then resumed; every run's maps equal the
+        monolithic check's, K1 launched once per segment."""
+        from jepsen_tpu_torch.__main__ import main as cli
+        from jepsen_tpu_torch.checkers import segmented
+        from jepsen_tpu_torch.checkers.segmented import checkpoint_path_for
+        from jepsen_tpu_torch.obs.metrics import (
+            REGISTRY,
+            QuantileSketch,
+            sketch_state_delta,
+        )
+        from jepsen_tpu_torch.ops.queue_stats import fused_queue_stats
+
+        run = self.tmp / "segmented"
+        run.mkdir()
+        hp = run / "history.jsonl"
+        t0 = time.perf_counter()
+        n_ops, lost, dup = write_long_history(hp)
+        print(f"segmented: wrote {n_ops} ops ({hp.stat().st_size} bytes), "
+              f"lost value {lost}, duplicate {dup}, in "
+              f"{time.perf_counter() - t0:.2f} s")
+        shapes = []
+        real = segmented._dispatch
+
+        def recording(packed, pos):
+            shapes.append((packed.batch, packed.length, packed.value_space,
+                           str(packed.value.dtype).removeprefix("torch."),
+                           "x".join(map(str, pos.shape))))
+            return real(packed, pos)
+
+        segmented._dispatch = recording
+        sketches = ("segment_check_s", "segment_prepare_s",
+                    "segment_device_s", "segment_merge_s")
+
+        def run_cli(name, argv, env=None):
+            shapes.clear()
+            before = {k: REGISTRY.sketch(f"segmented.{k}").state()
+                      for k in sketches}
+            torch.cuda.synchronize()
+            fused_queue_stats.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli([*argv, "--device", str(self.dev), str(run)])
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            *body, _banner = buf.getvalue().rstrip("\n").split("\n")
+            result = json.loads("\n".join(body))
+            rec = {"run": name, "rc": rc, "wall_s": wall,
+                   "k1_launches": fused_queue_stats.launches}
+            for k in sketches:
+                d = REGISTRY.sketch(f"segmented.{k}")
+                delta = QuantileSketch.from_state(
+                    sketch_state_delta(before[k], d.state()))
+                if delta.count:  # the monolithic check has no segments
+                    rec[k] = {"count": delta.count, "sum": delta.sum,
+                              "p50": delta.quantile(0.5),
+                              "p99": delta.quantile(0.99)}
+            # each K1 call's (B, L, V, value dtype, pos shape), counted
+            rec["shapes"] = [[*k, c] for k, c in sorted(
+                collections.Counter(shapes).items())]
+            return result, rec
+
+        try:
+            results = {}
+            results["jsonl"], rec = run_cli(
+                "jsonl", ["check", "--segment-ops", str(SEGMENT_OPS)])
+            self.segmented["runs"] = [rec]
+            results["mono"], mono = run_cli("monolithic", ["check"])
+            if not (run / "history.jtc").is_file():
+                raise AssertionError("the monolithic check left no .jtc")
+            results["jtc"], rec = run_cli(
+                "jtc", ["check", "--segment-ops", str(SEGMENT_OPS)])
+            self.segmented["runs"].append(rec)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "jepsen_tpu_torch", "check",
+                 "--segment-ops", str(SEGMENT_OPS), "--device",
+                 str(self.dev), str(run)],
+                env={**os.environ, "JEPSEN_TPU_SEG_DIE_AFTER": "7"},
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            killed_s = time.perf_counter() - t0
+            ckpt = json.loads(checkpoint_path_for(hp).read_text())
+            if proc.returncode != 137 or ckpt["segment_idx"] != 7:
+                raise AssertionError(
+                    f"segmented: the killed run exited {proc.returncode} "
+                    f"at segment {ckpt['segment_idx']}:\n{proc.stderr[-3000:]}")
+            results["resumed"], rec = run_cli(
+                "resumed", ["check", "--segment-ops", str(SEGMENT_OPS),
+                            "--resume"])
+            rec["killed_run_s"] = killed_s
+            self.segmented["runs"].append(rec)
+        finally:
+            segmented._dispatch = real
+        n_seg = -(-n_ops // SEGMENT_OPS)
+        want = results["mono"]
+        if want["queue"]["lost"] != [lost] or want["queue"]["duplicated"] != [
+                dup] or want["linear"]["duplicate"] != [dup]:
+            raise AssertionError(f"segmented: the monolithic check found "
+                                 f"{want['queue']}, {want['linear']}")
+        for name in ("jsonl", "jtc", "resumed"):
+            got, meta = results[name], results[name]["segmented"]
+            rec = next(r for r in self.segmented["runs"] if r["run"] == name)
+            for fam in ("queue", "linear", "valid?"):
+                if got[fam] != want[fam]:
+                    raise AssertionError(f"segmented {name}: {fam} differs "
+                                         "from the monolithic check")
+            want_launches = n_seg - 8 if name == "resumed" else n_seg
+            if (meta["resumed"] != (name == "resumed")
+                    or meta["quarantined-segments"]
+                    or meta["substrate"] != ("jsonl" if name == "jsonl"
+                                             else "jtc")
+                    or rec["k1_launches"] != want_launches
+                    or rec["segment_check_s"]["count"] != want_launches
+                    or rec["rc"] != 1):
+                raise AssertionError(f"segmented {name}: {meta}, {rec}")
+            print(f"segmented: {name}: {meta['ops']} ops in {meta['segments']}"
+                  f" segments of {SEGMENT_OPS}, {rec['k1_launches']} K1 "
+                  f"launches at (B, L, V, value, pos) {rec['shapes']}, "
+                  f"segment p50 {rec['segment_check_s']['p50'] * 1e3:.3f} ms"
+                  f" / p99 {rec['segment_check_s']['p99'] * 1e3:.3f} ms; in "
+                  f"all, stats (prepare {rec['segment_prepare_s']['sum']:.6f}"
+                  f" s + device {rec['segment_device_s']['sum']:.6f} s) and "
+                  f"merge {rec['segment_merge_s']['sum']:.6f} s; wall "
+                  f"{rec['wall_s']:.6f} s; resumed={meta['resumed']}, "
+                  f"quarantined 0, on {self.card}")
+        print(f"segmented: monolithic check of {n_ops} ops: "
+              f"{mono['k1_launches']} K1 launch, wall {mono['wall_s']:.6f} s,"
+              f" maps equal all three segmented runs, on {self.card}")
+        self.segmented["monolithic"] = mono
+        timed = self._segment_k1_timing(hp)
+        self.segmented["k1"] = [{"shape": list(k), **v}
+                                for k, v in timed.items()]
+        for (B, L, V, dt, pos), t in timed.items():
+            # launches at this shape in the three segmented runs
+            launches = sum(c for r in self.segmented["runs"]
+                           for *shape, c in r["shapes"]
+                           if shape == [B, L, V, dt, pos])
+            self.shapes.append({"phase": "segmented", "B": B, "L": L, "V": V,
+                                "value": dt, "pos": f"[{pos}]", **t,
+                                "launches": launches})
+
+    def _segment_k1_timing(self, hp) -> dict:
+        """K1 at the segment shapes B=1 × L=65,536 × V=32,768 (int16 ids,
+        segment 1 of the long history) and V=65,536 (int32 ids, a segment
+        of 40,000 distinct values), with ``[L]`` pos: bit-exact against
+        the plain version, timed, and its bound."""
+        from jepsen_tpu_torch.checkers.segmented import (
+            _k1_input,
+            queue_prepare_rows,
+        )
+        from jepsen_tpu_torch.history.columnar import load_jtc
+        from jepsen_tpu_torch.ops.queue_stats import (
+            fused_queue_stats,
+            queue_stats_plain,
+        )
+        from jepsen_tpu_torch.timing import event_ms, queued_ms
+
+        rows = load_jtc(hp).rows()
+        idx = rows[:, 0]
+        lo, hi = (int(np.searchsorted(idx, k * SEGMENT_OPS)) for k in (1, 2))
+        wide = _wide_rows(40_000)
+        out = {}
+        for r in (rows[lo:hi], wide):
+            prep = queue_prepare_rows(r, r[:, 0].astype(np.int64))
+            cols = [torch.from_numpy(prep[k]).unsqueeze(0).to(self.dev)
+                    for k in ("f", "typ", "val", "mask")]
+            packed = _k1_input(*cols, prep["V"])
+            pos = torch.from_numpy(prep["pos"]).to(self.dev)
+            k = fused_queue_stats(packed, pos)
+            pl = queue_stats_plain(packed.f, packed.type, packed.value,
+                                   packed.mask, packed.value_space, pos)
+            torch.cuda.synchronize()
+            err = _stats_err(k, pl)
+            _equal_fields(k, pl, f"K1 vs plain at L={prep['L']} V={prep['V']}")
+            ms = event_ms(lambda: fused_queue_stats(packed, pos), 50)
+            plain_ms = event_ms(lambda: queue_stats_plain(
+                packed.f, packed.type, packed.value, packed.mask,
+                packed.value_space, pos), 10)
+            device_ms, host_us = queued_ms(
+                lambda: fused_queue_stats(packed, pos), 50)
+            L, V = prep["L"], prep["V"]
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in (*cols, pos)) + 24 * V
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = OPS_PER_ROW * L / INT32_OPS_PER_S * 1e3
+            dt = str(cols[2].dtype).removeprefix("torch.")
+            out[(1, L, V, dt, str(L))] = {
+                "ms": ms, "device_ms": device_ms, "host_us": host_us,
+                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "max_abs_err": err,
+                "load_path": fused_queue_stats.last_path}
+            print(f"segmented: K1 at B=1 L={L} V={V} {dt} values, [L] pos: "
+                  f"{ms:.6f} ms back to back, {device_ms:.6f} ms device time "
+                  f"({max(bytes_ms, ops_ms) / device_ms:.1%} of the "
+                  f"{max(bytes_ms, ops_ms):.6f} ms bound, {nbytes} bytes), "
+                  f"wrapper host time {host_us:.3f} us, plain {plain_ms:.6f}"
+                  f" ms, max_abs_err {err}, {fused_queue_stats.last_path} "
+                  f"path, on {self.card}")
+        return out
+
+
+#: the segmented phase's configuration, SEGMENTED.md's: about 1,000,016
+#: ops (the writer's count for seed 7) in segments of 65,536
+LONG_OPS = 1_000_000
+SEGMENT_OPS = 65_536
+#: the bench phase's synthetic run, and its count of invalid histories,
+#: the JAX package's on the same seeds (a seed with no acknowledged value
+#: still queued at the drain gets no loss injected)
+SYNTH_COUNT, SYNTH_OPS, SYNTH_INVALID = 1024, 1000, 999
+
+
+def write_long_history(path: Path, n_ops: int = LONG_OPS, seed: int = 7):
+    """Stream a synthetic queue history of about ``n_ops`` ops to
+    ``path`` with memory bounded by the queue's depth: values off one
+    counter, five processes, every acknowledged value dequeued in FIFO
+    order, as the JAX package's long-history bench writes it; plus one
+    lost value (acknowledged just before the boundary of segment 3 and
+    never read) and one duplicate (a value read in segment 2 read again
+    in segment 9).  Returns ``(ops written, lost value, duplicate)``."""
+    rng = random.Random(seed)
+    nxt, clock, written = 0, 0, 0
+    fifo: list[int] = []
+    lost = dup = first_read = None
+    lost_at, dup_at = 3 * SEGMENT_OPS - 6, 9 * SEGMENT_OPS + 10
+    with open(path, "w") as fh:
+
+        def emit(type_, f, process, value):
+            nonlocal clock, written
+            clock += rng.randrange(1, 2_000_000)
+            fh.write(json.dumps({
+                "index": written, "type": type_, "f": f,
+                "process": process, "time": clock, "value": value}) + "\n")
+            written += 1
+
+        while written < n_ops - 4:
+            p = rng.randrange(5)
+            if lost is None and written >= lost_at:
+                lost, nxt = nxt, nxt + 1
+                emit("invoke", "enqueue", p, lost)
+                emit("ok", "enqueue", p, lost)  # never queued: lost
+            elif dup is None and written >= dup_at:
+                dup = first_read
+                emit("invoke", "dequeue", p, None)
+                emit("ok", "dequeue", p, dup)  # read a second time
+            elif fifo and (len(fifo) > 16 or rng.random() < 0.45):
+                v = fifo.pop(0)
+                emit("invoke", "dequeue", p, None)
+                emit("ok", "dequeue", p, v)
+                if first_read is None and written > 2 * SEGMENT_OPS:
+                    first_read = v
+            else:
+                v, nxt = nxt, nxt + 1
+                emit("invoke", "enqueue", p, v)
+                emit("ok", "enqueue", p, v)
+                fifo.append(v)
+        while fifo:
+            v = fifo.pop(0)
+            emit("invoke", "dequeue", 0, None)
+            emit("ok", "dequeue", 0, v)
+    return written, lost, dup
+
+
+def _wide_rows(n_values: int, seed: int = 0) -> np.ndarray:
+    """The rows of one segment whose queue rows hold ``n_values`` distinct
+    values in 1.5 rows each (every other value enqueued and acknowledged,
+    the rest only read), at global positions past 2**20: at 40,000 values,
+    L=65,536 and V=65,536."""
+    from jepsen_tpu_torch.history.ops import Op, OpF, OpType
+    from jepsen_tpu_torch.history.rows import _rows_for
+
+    rng = np.random.default_rng(seed)
+    ops = []
+    for i, v in enumerate(rng.permutation(4 * n_values)[:n_values].tolist()):
+        if i % 2:
+            ops.append(Op(OpType.OK, OpF.DEQUEUE, 7, v, time=4))
+        else:
+            ops += [Op.invoke(OpF.ENQUEUE, v % 5, v, time=1),
+                    Op(OpType.OK, OpF.ENQUEUE, v % 5, v, time=2)]
+    for i, op in enumerate(ops):
+        op.index = (1 << 20) + i
+    return _rows_for(ops)
+
+
+def _device_ops(trace: Path, n: int = 10) -> dict:
+    """The ``n`` longest device operations of a ``torch.profiler`` Chrome
+    trace (kernels, copies, sets), and the ``n`` names with the most
+    device time in all, in µs."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:  # the profiler saw no card activity: nothing to rank
+        return {"device_ops": 0, "device_us": 0.0, "kernels": 0,
+                "kernel_us": 0.0, "k1_us": 0.0, "longest": [], "by_name": []}
+    longest = sorted(dev, key=lambda e: -e["dur"])[:n]
+    by_name: dict = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    kernels = [e for e in dev if e["cat"] == "kernel"]
+    return {
+        "device_ops": len(dev),
+        "device_us": sum(e["dur"] for e in dev),
+        "kernels": len(kernels),
+        "kernel_us": sum(e["dur"] for e in kernels),
+        "k1_us": sum(e["dur"] for e in kernels
+                     if "queue_stats_kernel" in e["name"]),
+        "longest": [{"name": e["name"], "cat": e["cat"], "dur_us": e["dur"]}
+                    for e in longest],
+        "by_name": sorted(by_name.items(), key=lambda kv: -kv[1])[:n],
+    }
 
 
 def _producer_breakdown(paths) -> dict:
@@ -802,22 +1269,28 @@ def main() -> int:
     phases = [(s.card_phase, None), (s.build_phase, None),
               (s.exact_phase, "build_phase"), (s.main_phase, "build_phase"),
               (s.recorded_phase, "build_phase"), (s.timing_phase, "main_phase"),
-              (s.pipeline_phase, "build_phase")]
+              (s.pipeline_phase, "build_phase"),
+              (s.bench_phase, "pipeline_phase"),
+              (s.segmented_phase, "build_phase")]
     failed = []
-    for phase, needs in phases:
-        if needs in failed:
-            failed.append(phase.__name__)
-            print(f"SKIPPED: {phase.__name__} (needs {needs})", file=sys.stderr)
-            continue
-        t0 = time.perf_counter()
-        try:
-            phase()
-        except Exception:
-            traceback.print_exc()
-            failed.append(phase.__name__)
-            print(f"FAILED: {phase.__name__}", file=sys.stderr)
-        print(f"# {phase.__name__}: {time.perf_counter() - t0:.2f} s",
-              file=sys.stderr)
+    try:
+        for phase, needs in phases:
+            if needs in failed:
+                failed.append(phase.__name__)
+                print(f"SKIPPED: {phase.__name__} (needs {needs})",
+                      file=sys.stderr)
+                continue
+            t0 = time.perf_counter()
+            try:
+                phase()
+            except Exception:
+                traceback.print_exc()
+                failed.append(phase.__name__)
+                print(f"FAILED: {phase.__name__}", file=sys.stderr)
+            print(f"# {phase.__name__}: {time.perf_counter() - t0:.2f} s",
+                  file=sys.stderr)
+    finally:
+        shutil.rmtree(s.tmp, ignore_errors=True)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -827,11 +1300,12 @@ def main() -> int:
         "source": "jepsen_tpu_torch/csrc/queue_stats.cu",
         "replaces": "jepsen_tpu/ops/pallas_stats.py:76",
         **s.kernel,
+        "shapes": s.shapes,
     }
     _record({"card": s.card, "torch": torch.__version__,
              "kernels": [kernel], "timing": s.timing, "build": s.build,
-             "exact": s.exact, "pipeline": s.pipeline,
-             "matplotlib": s.matplotlib})
+             "exact": s.exact, "pipeline": s.pipeline, "bench": s.bench,
+             "segmented": s.segmented, "matplotlib": s.matplotlib})
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

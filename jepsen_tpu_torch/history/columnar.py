@@ -341,11 +341,17 @@ def consult(src_path: str | Path) -> Jtc | None:
     """The fresh substrate or None, for the cache layers: a corrupt
     ``.jtc`` is logged as a warning (and raises under
     ``JEPSEN_TPU_JTC_STRICT=1``) before the caller parses the source; an
-    absent one is noted once per directory."""
+    absent one is noted once per directory.  Each outcome is counted in
+    the global registry, as the JAX package counts it: ``jtc.hit``, or
+    ``jtc.fallback`` with ``reason`` ``corrupt``, ``absent`` or
+    ``stale``."""
+    from jepsen_tpu_torch.obs.metrics import REGISTRY
+
     src = Path(src_path)
     try:
         got = load_jtc(src)
     except ColumnarFormatError as e:
+        REGISTRY.counter("jtc.fallback", reason="corrupt").inc()
         if _strict():
             raise
         log.warning(
@@ -353,11 +359,19 @@ def consult(src_path: str | Path) -> Jtc | None:
             "%s: %s", src, e,
         )
         return None
-    if got is None and not _disabled() and not jtc_path_for(src).exists():
-        _note_once(
-            src.parent, logging.INFO,
-            "no columnar substrate (.jtc) under %s; parsing", src.parent,
-        )
+    if got is not None:
+        REGISTRY.counter("jtc.hit").inc()
+        return got
+    if not _disabled():
+        if not jtc_path_for(src).exists():
+            REGISTRY.counter("jtc.fallback", reason="absent").inc()
+            _note_once(
+                src.parent, logging.INFO,
+                "no columnar substrate (.jtc) under %s; parsing",
+                src.parent,
+            )
+        else:  # present, but stamped for other source bytes or name
+            REGISTRY.counter("jtc.fallback", reason="stale").inc()
     return got
 
 

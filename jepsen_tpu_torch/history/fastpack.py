@@ -27,6 +27,8 @@ from pathlib import Path
 
 import numpy as np
 
+from jepsen_tpu_torch.obs import trace as obs_trace
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG.parent / "native" / "rows_packer.cpp"
 BUILD_DIR = _PKG / "_build"
@@ -172,7 +174,13 @@ def pack_files(paths, threads: int = 0, use_jtc: bool = True) -> list:
         return out
     arr = (ctypes.c_char_p * len(idx))(
         *[str(Path(paths[i])).encode() for i in idx])
-    with _jtc_disabled(lib, not use_jtc):
+    # one trace span per native batch, as the JAX package records it; its
+    # args are built only when the tracer is on
+    span = obs_trace.span(
+        "fastpack.jt_pack_files",
+        args={"files": len(idx), "part": 0, "n_parts": 1, "use_jtc": use_jtc}
+        if obs_trace.is_enabled() else None)
+    with span, _jtc_disabled(lib, not use_jtc):
         res = lib.jt_pack_files(arr, len(idx), int(threads))
     if not res:
         raise MemoryError("the native packer could not allocate its "

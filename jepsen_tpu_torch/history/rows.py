@@ -263,11 +263,14 @@ def load_rows_cache(
     return workload, np.asarray(rows, np.int32)
 
 
-def rows_with_cache(jsonl_path: str | Path) -> tuple[str, np.ndarray, bool]:
+def rows_with_cache(
+    jsonl_path: str | Path, history=None
+) -> tuple[str, np.ndarray, bool]:
     """Load-through cache: ``(workload, rows, was_hit)``.  A miss packs
     the source (the native packer first, which returns None on input it
     flags; then the Python path, which raises the canonical error) and
-    leaves the cache behind."""
+    leaves the cache behind.  Pass ``history`` when the caller already
+    parsed the ops: a miss then skips the parse."""
     from jepsen_tpu_torch.history.fastpack import pack_file
     from jepsen_tpu_torch.history.ops import workload_of
     from jepsen_tpu_torch.history.store import read_history
@@ -275,12 +278,13 @@ def rows_with_cache(jsonl_path: str | Path) -> tuple[str, np.ndarray, bool]:
     cached = load_rows_cache(jsonl_path)
     if cached is not None:
         return (*cached, True)
-    fast = pack_file(jsonl_path)
-    if fast is not None:
-        workload, rows = fast
-        save_rows_cache(jsonl_path, workload, rows)
-        return workload, rows, False
-    history = read_history(jsonl_path)
+    if history is None:
+        fast = pack_file(jsonl_path)
+        if fast is not None:
+            workload, rows = fast
+            save_rows_cache(jsonl_path, workload, rows)
+            return workload, rows, False
+        history = read_history(jsonl_path)
     workload = workload_of(history)
     rows = _rows_for(history)
     save_rows_cache(jsonl_path, workload, rows)

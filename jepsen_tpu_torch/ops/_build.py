@@ -16,6 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from jepsen_tpu_torch.device import DeviceFault
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -23,6 +25,15 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+
+class KernelBuildError(DeviceFault):
+    """A kernel could not be built: its first line says which, the rest
+    is the compiler's text."""
+
+
+class KernelLaunchError(DeviceFault):
+    """A kernel's launcher returned a CUDA error."""
 
 
 def _nvcc() -> str:
@@ -34,7 +45,8 @@ def _nvcc() -> str:
         cand = Path(root) / "bin" / "nvcc"
         if cand.is_file():
             return str(cand)
-    raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    raise KernelBuildError(
+        "nvcc not found: put it on PATH or set CUDA_HOME")
 
 
 def _lib_path(name: str) -> Path:
@@ -58,7 +70,7 @@ def build(name: str) -> Path:
     )
     if proc.returncode:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
+        raise KernelBuildError(
             f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}"
         )
     os.replace(tmp, lib)  # atomic against a concurrent build

@@ -172,7 +172,8 @@ def _launch(packed: PackedHistories, pos: torch.Tensor | None) -> QueueStats:
         torch._C._cuda_getCurrentRawStream(dev),
     )
     if rc:
-        raise RuntimeError(f"queue_stats kernel launch failed: CUDA error {rc}")
+        raise _build.KernelLaunchError(
+            f"queue_stats kernel launch failed: CUDA error {rc}")
     fused_queue_stats.launches += 1
     fused_queue_stats.last_path = _PATHS[path.value]
     return QueueStats(*out.unbind(1))

@@ -33,7 +33,10 @@ history by history, so one poison history cannot condemn its
 chunk-mates; a history that still fails reports ``unknown`` with the
 captured exception as evidence, and every other verdict survives.
 ``fail_fast=True`` aborts the whole run with :class:`PipelineError` on
-any stage failure, and no verdict escapes.
+any stage failure, and no verdict escapes.  Either way a fault of the
+card or of K1 (:data:`~jepsen_tpu_torch.device.DEVICE_FAULTS`: a build
+or launch failure, a CUDA error) raises as it is: it is not the data's,
+and is never quarantined into ``unknown``.
 """
 
 from __future__ import annotations
@@ -51,17 +54,20 @@ import numpy as np
 import torch
 
 from jepsen_tpu_torch.checkers.protocol import UNKNOWN, VALID
+from jepsen_tpu_torch.device import DEVICE_FAULTS, DeviceFault
+from jepsen_tpu_torch.obs import metrics as obs_metrics
+from jepsen_tpu_torch.obs import trace as obs_trace
 
 #: histories per pipeline chunk
 DEFAULT_CHUNK = 64
 
 #: where each family that is not ported yet stands in ROADMAP.md
-_NOT_PORTED = {
+NOT_PORTED = {
     "stream": "Open items §1, item 6 (stream family)",
     "elle": "Open items §1, item 7 (elle family)",
     "mutex": "Open items §1, item 8 (WGL / mutex family)",
 }
-_MULTI = "Open items §1, item 9 (multi-GPU and multi-process)"
+MULTI_NOT_PORTED = "Open items §1, item 9 (multi-GPU and multi-process)"
 
 
 class PipelineError(RuntimeError):
@@ -107,8 +113,26 @@ class Quarantined:
         }
 
 
+def _counter_field(name: str, cast=int, **labels):
+    """A :class:`PipelineStats` attribute backed by its run's registry:
+    the stats object is a view, the registry is the storage."""
+
+    def get(self):
+        return cast(self.metrics.value(name, **labels))
+
+    def set(self, v):
+        self.metrics.counter(name, **labels).set(v)
+
+    return property(get, set)
+
+
 class PipelineStats:
-    """The executor's timing evidence.
+    """The executor's timing evidence, a view over a run-scoped metrics
+    registry (``self.metrics``, ``obs/metrics.py``), as in the JAX
+    package.  Every field but the two derived fractions is a counter
+    there; :meth:`add_busy` is the one accounting point of stage time,
+    and mirrors it into the process-global ``REGISTRY`` with each batch's
+    check time in the ``pipeline.check_batch_s`` sketch.
 
     ``*_busy_s``: seconds each stage was busy (the check stage counts
     from a batch's dispatch, or the previous batch's completion if
@@ -122,26 +146,37 @@ class PipelineStats:
     not ported (always 1 and 0)."""
 
     def __init__(self):
+        self.metrics = obs_metrics.Registry()
         self.lanes = 1
-        self.dropped = 0
-        self.batches = 0
-        self.histories = 0
-        self.quarantined = 0
-        self.unit_retries = 0
-        self.produce_busy_s = 0.0
-        self.place_busy_s = 0.0
-        self.check_busy_s = 0.0
         self.wall_s = 0.0
         self.stage_overlap_frac = 0.0
         self.device_idle_frac = 0.0
-        self._lock = threading.Lock()  # the producer thread adds too
+
+    batches = _counter_field("pipeline.batches")
+    histories = _counter_field("pipeline.histories")
+    dropped = _counter_field("pipeline.files_dropped")
+    quarantined = _counter_field("pipeline.quarantined")
+    unit_retries = _counter_field("pipeline.unit_retries")
+    produce_busy_s = _counter_field(
+        "pipeline.stage_busy_s", cast=float, stage="produce")
+    place_busy_s = _counter_field(
+        "pipeline.stage_busy_s", cast=float, stage="place")
+    check_busy_s = _counter_field(
+        "pipeline.stage_busy_s", cast=float, stage="check")
 
     def add_busy(self, stage: str, t0: float, t1: float) -> None:
         """Count ``t1 - t0`` seconds (``time.perf_counter()``) of
-        ``stage`` (``produce``, ``place`` or ``check``)."""
-        name = f"{stage}_busy_s"
-        with self._lock:
-            setattr(self, name, getattr(self, name) + (t1 - t0))
+        ``stage`` (``produce``, ``place`` or ``check``) in this run and
+        in the global registry, and record the stage as a trace span
+        when the tracer is on."""
+        dt = t1 - t0
+        self.metrics.counter("pipeline.stage_busy_s", stage=stage).inc(dt)
+        obs_metrics.REGISTRY.counter(
+            "pipeline.stage_busy_s", stage=stage).inc(dt)
+        if stage == "check":
+            self.metrics.sketch("pipeline.check_batch_s").add(dt)
+            obs_metrics.REGISTRY.sketch("pipeline.check_batch_s").add(dt)
+        obs_trace.complete(f"pipeline.{stage}", t0, t1)
 
     def run_stage(self, stage: str, fn, arg):
         """``fn(arg)``, counted as busy time of ``stage``."""
@@ -151,12 +186,21 @@ class PipelineStats:
         return out
 
     def note_retry(self) -> None:
-        with self._lock:
-            self.unit_retries += 1
+        self.metrics.counter("pipeline.unit_retries").inc()
+        obs_metrics.REGISTRY.counter("pipeline.unit_retries").inc()
 
-    def note_quarantine(self, histories: int = 1) -> None:
-        with self._lock:
-            self.quarantined += histories
+    def note_quarantine(self, evidence: dict, histories: int = 1) -> None:
+        """``histories`` final quarantined verdicts, counted per history
+        here and in the global registry, and a trace event with the
+        evidence when the tracer is on."""
+        self.metrics.counter("pipeline.quarantined").inc(histories)
+        obs_metrics.REGISTRY.counter("pipeline.quarantined").inc(histories)
+        if obs_trace.is_enabled():
+            obs_trace.event("checker.quarantine",
+                            args={"histories": histories, **evidence})
+
+    def check_batch_quantile(self, q: float) -> float:
+        return self.metrics.sketch("pipeline.check_batch_s").quantile(q)
 
     def finalize(self) -> "PipelineStats":
         busy = self.produce_busy_s + self.place_busy_s + self.check_busy_s
@@ -317,7 +361,7 @@ def _run_pipeline_failfast(
                 drain_one()
         while in_flight:
             drain_one()
-    except PipelineError:
+    except (PipelineError, *DEVICE_FAULTS):
         abort.set()
         raise
     except Exception as e:
@@ -382,6 +426,8 @@ def _run_pipeline_elastic(
                 # a device error surfaces here, where the work is awaited
                 got = collect(raw)
                 break
+            except DEVICE_FAULTS:
+                raise
             except Exception as e:
                 errors.append(e)
                 if attempt == 0:
@@ -396,6 +442,8 @@ def _run_pipeline_elastic(
                                 stats.run_stage("produce", produce, items[i]),
                             )
                         )
+                    except DEVICE_FAULTS:
+                        raise
                     except Exception as e2:
                         errors.append(e2)
                         break
@@ -435,6 +483,8 @@ def _run_pipeline_elastic(
                     t_disp = time.perf_counter()
                     raw = check(placed)
                     break
+                except DEVICE_FAULTS:
+                    raise
                 except Exception as e:
                     errors.append(e)
                     if attempt == 0:
@@ -583,7 +633,7 @@ def _queue_family(
             out = combined_tensor_check(packed, delivery, packed_out=True)
         # power-of-two L and V and fresh device columns: K1's vector path
         if fused_queue_stats.last_path != "vector":
-            raise RuntimeError(
+            raise DeviceFault(
                 f"K1 took its {fused_queue_stats.last_path} path on a "
                 f"pipeline batch of shape {tuple(packed.f.shape)}")
         return out
@@ -613,10 +663,10 @@ def family_for(workload: str, **opts) -> _Family:
             device=opts.get("device", "cuda"),
             depth=opts.get("depth", 2),
         )
-    if workload in _NOT_PORTED:
+    if workload in NOT_PORTED:
         raise NotImplementedError(
             f"the {workload} pipeline family is not ported yet "
-            f"(ROADMAP.md {_NOT_PORTED[workload]})")
+            f"(ROADMAP.md {NOT_PORTED[workload]})")
     raise ValueError(f"no pipeline family for workload {workload!r}")
 
 
@@ -646,6 +696,8 @@ def _salvage_unit(fam: _Family, unit, q: Quarantined) -> _SalvagedUnit:
             raw = fam.check(placed)
             stage = "collect"
             col = fam.collect(raw)
+        except DEVICE_FAULTS:
+            raise
         except Exception as e:
             members.append((sub, Quarantined(
                 q.index, stage, q.attempts + ["salvage"], q.errors + [e])))
@@ -668,7 +720,7 @@ def _resolve_quarantines(
             1 for _s, c in salvaged.members if isinstance(c, Quarantined)
         )
         if n_q:
-            stats.note_quarantine(n_q)
+            stats.note_quarantine(col.evidence(), histories=n_q)
         out[k] = salvaged
     return out
 
@@ -709,7 +761,7 @@ def _convert_unit(
         return fam.convert(unit, col)
     except Exception as e:
         q = Quarantined(-1, "convert", ["main"], [e])
-        stats.note_quarantine(len(unit))
+        stats.note_quarantine(q.evidence(), histories=len(unit))
         return [_quarantined_result(workload, q.evidence()) for _ in unit]
 
 
@@ -738,7 +790,8 @@ def check_sources(
     multi-device executor, which is not ported: they raise."""
     if lanes is not None or reduce or opts.get("mesh") is not None:
         raise NotImplementedError(
-            f"lanes, mesh and reduce are not ported yet (ROADMAP.md {_MULTI})")
+            "lanes, mesh and reduce are not ported yet "
+            f"(ROADMAP.md {MULTI_NOT_PORTED})")
     opts.setdefault("chunk_pad", chunk)
     fam = family_for(workload, depth=depth, **opts)
     items = _chunks(list(sources), chunk)
@@ -808,3 +861,45 @@ class PipelinedChecker:
             self.workload, [_rows_for(history)], chunk=1, serial=True,
             **self._opts)
         return results
+
+
+# ---------------------------------------------------------------------------
+# segment-producer mode
+# ---------------------------------------------------------------------------
+
+
+def check_source_segmented(
+    workload: str | None,
+    src,
+    *,
+    segment_ops: int,
+    resume: bool = False,
+    device: str | torch.device = "cuda",
+    **opts,
+) -> tuple[dict, PipelineStats]:
+    """The pipeline's segment-producer mode: one history streamed through
+    the segmented carry engine (``checkers/segmented.py``) in fixed-count
+    segments, with bounded memory whatever the history's length, a
+    durable checkpoint after each segment, and ``resume=True`` to go on
+    from the last one.  Each segment's check time lands in the global
+    registry's ``segmented.segment_check_s`` sketch, and the returned
+    :class:`PipelineStats` counts the segments as checked batches."""
+    from jepsen_tpu_torch.checkers.segmented import segmented_check_file
+
+    stats = PipelineStats()
+    t0 = time.perf_counter()
+    before = obs_metrics.REGISTRY.value("segmented.segments")
+    result = segmented_check_file(
+        src,
+        workload=workload,
+        segment_ops=segment_ops,
+        opts={k: v for k, v in opts.items() if v is not None},
+        resume=resume,
+        device=device,
+    )
+    t1 = time.perf_counter()
+    stats.histories = 1
+    stats.batches = int(
+        obs_metrics.REGISTRY.value("segmented.segments") - before)
+    stats.add_busy("check", t0, t1)
+    return result, stats

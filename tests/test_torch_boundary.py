@@ -84,3 +84,34 @@ def test_default_device_raises_without_a_card():
     fn, args = entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn(*args)
+
+
+def test_parpack_children_run_the_port_module_and_import_no_jax(tmp_path):
+    """A pack worker is started by the command line ``_fan_out`` uses: the
+    port's module, with no card visible, importing nothing of JAX or the
+    JAX package; its rows are the serial path's."""
+    import pickle
+
+    from jepsen_tpu_torch.history.parpack import _worker_argv, _worker_env
+    from jepsen_tpu_torch.history.rows import _rows_for
+    from jepsen_tpu_torch.history.synth import synth_batch
+
+    fin, fout = tmp_path / "in.pkl", tmp_path / "out.pkl"
+    fin.write_bytes(pickle.dumps(("synth", (2, 5, 30, 1))))
+    argv = _worker_argv(str(fin), str(fout))
+    assert argv[1:3] == ["-m", "jepsen_tpu_torch.history.parpack"]
+    env = _worker_env()
+    assert env["CUDA_VISIBLE_DEVICES"] == ""
+    p = subprocess.run(argv, env={**env, "PYTHONPROFILEIMPORTTIME": "1"},
+                       cwd=tmp_path, capture_output=True, text=True,
+                       timeout=120)
+    assert p.returncode == 0, p.stderr[-2000:]
+    imported = {line.rsplit("|", 1)[-1].strip()
+                for line in p.stderr.splitlines()
+                if line.startswith("import time:")}
+    assert "jepsen_tpu_torch.history.synth" in imported
+    assert [m for m in imported if _forbidden(m)] == []
+    got = pickle.loads(fout.read_bytes())
+    want = [_rows_for(sh.ops) for sh in synth_batch(
+        2, SynthSpec(n_ops=30, seed=5), lost=1)]
+    assert len(got) == 2 and all((a == b).all() for a, b in zip(got, want))

@@ -273,3 +273,72 @@ def test_perf_on_the_card_equals_the_cpu(cuda_device):
         if w.dtype == torch.float32:
             w, g = w.view(torch.int32), g.view(torch.int32)  # bit for bit
         assert torch.equal(g, w), f.name
+
+
+def segment_rows(n_values: int, seed: int = 0) -> np.ndarray:
+    """The exploded rows of one segment whose queue rows hold
+    ``n_values`` distinct values at global positions past 2**20: each
+    value enqueued (some failed or indeterminate) and read, some twice."""
+    from jepsen_tpu_torch.history.ops import Op, OpF, OpType
+    from jepsen_tpu_torch.history.rows import _rows_for
+
+    rng = np.random.default_rng(seed)
+    ops = []
+    for v in rng.permutation(4 * n_values)[:n_values].tolist():
+        done = OpType.FAIL if v % 97 == 0 else OpType.OK
+        ops += [Op.invoke(OpF.ENQUEUE, v % 5, v, time=1),
+                Op(done, OpF.ENQUEUE, v % 5, v, time=2),
+                Op.invoke(OpF.DEQUEUE, 7, None, time=3),
+                Op(OpType.OK, OpF.DEQUEUE, 7, v, time=4)]
+    ops += [ops[int(k)] for k in rng.integers(0, len(ops), 64)]
+    for i, op in enumerate(ops):
+        op.index = (1 << 20) + i
+    return _rows_for(ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_values, dtype", [(20_000, torch.int16),
+                                             (40_000, torch.int32)])
+def test_kernel_at_segment_shapes_equals_plain(cuda_device, n_values, dtype):
+    """K1 as the segmented engine drives it: B=1, an ``[L]`` pos of global
+    op indexes, dense local value ids in int16 (V=32,768) and int32
+    (V=65,536)."""
+    from jepsen_tpu_torch.checkers.segmented import (
+        _k1_input,
+        queue_prepare_rows,
+    )
+
+    rows = segment_rows(n_values)
+    prep = queue_prepare_rows(rows, rows[:, 0].astype(np.int64))
+    cols = [torch.from_numpy(prep[k]).unsqueeze(0).to(cuda_device)
+            for k in ("f", "typ", "val", "mask")]
+    assert cols[2].dtype == dtype
+    assert prep["L"] == (65_536 if dtype == torch.int16 else 131_072)
+    packed = _k1_input(*cols, prep["V"])
+    pos = torch.from_numpy(prep["pos"]).to(cuda_device)
+    fused_queue_stats.launches = 0
+    got = fused_queue_stats(packed, pos)
+    assert fused_queue_stats.launches == 1
+    want = queue_stats_plain(packed.f, packed.type, packed.value,
+                             packed.mask, packed.value_space, pos)
+    for k in "aexdst":
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+@pytest.mark.cuda
+def test_segmented_check_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    from jepsen_tpu_torch.checkers.segmented import segmented_check_file
+
+    sh = synth_batch(1, SynthSpec(n_ops=3000, seed=11), lost=1,
+                     duplicated=1)[0]
+    hp = tmp_path / "history.jsonl"
+    write_history_jsonl(hp, sh.ops)
+    want = segmented_check_file(hp, segment_ops=1000, device="cpu")
+    fused_queue_stats.launches = 0
+    got = segmented_check_file(hp, segment_ops=1000, device=cuda_device)
+    segments = got["segmented"]["segments"]
+    assert fused_queue_stats.launches == segments == want["segmented"][
+        "segments"] > 1
+    for fam in ("queue", "linear", "valid?"):
+        assert got[fam] == want[fam], fam
+    assert got["queue"]["valid?"] is False

@@ -194,23 +194,27 @@ def test_families_and_modes_not_ported_raise(corpus):
 
 
 def test_edn_sources_are_refused_by_name(tmp_path, corpus):
+    """EDN sources were refused by name before the EDN reader was
+    ported; now an EDN run without a JSONL twin is walked and checked
+    as its JSONL copy is, and an exported twin beside a JSONL history
+    is skipped."""
+    from jepsen_tpu_torch.__main__ import bench_check_pipeline
+    from jepsen_tpu_torch.history.edn import write_history_edn
     from jepsen_tpu_torch.history.store import history_paths
 
     run = tmp_path / "edn-run"
     run.mkdir()
-    (run / "history.edn").write_text("[]\n")
+    write_history_edn(run / "history.edn", read_history(corpus[1]))
     shutil.copytree(corpus[0].parent, tmp_path / "jsonl-run")
-    (tmp_path / "jsonl-run" / "history.edn").write_text("[]\n")  # a twin
-    with pytest.raises(NotImplementedError, match="EDN reader"):
-        history_paths(tmp_path)
-    with pytest.raises(NotImplementedError, match="EDN reader"):
-        read_history(run / "history.edn")
-    with pytest.raises(NotImplementedError, match="EDN reader"):
-        port_main(["bench-check", "--pipeline", "--device", "cpu",
-                   str(tmp_path)])
-    (run / "history.edn").unlink()  # the JSONL twin alone is walked
-    assert history_paths(tmp_path) == [tmp_path / "jsonl-run" /
-                                       "history.jsonl"]
+    write_history_edn(tmp_path / "jsonl-run" / "history.edn",
+                      read_history(corpus[0]))  # a twin
+    paths = history_paths(tmp_path)
+    assert paths == [tmp_path / "jsonl-run" / "history.jsonl",
+                     run / "history.edn"]
+    assert [op.to_json() for op in read_history(run / "history.edn")] == [
+        op.to_json() for op in read_history(corpus[1])]
+    _, results, _ = bench_check_pipeline(tmp_path, chunk=4, device="cpu")
+    assert results == _oracle(corpus[:2], "exactly-once")
 
 
 def _stdout(fn, argv):
@@ -329,12 +333,16 @@ def test_default_device_raises_without_a_card(tmp_path, corpus):
         pytest.skip("a CUDA card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         check_sources("queue", corpus)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        port_main(["bench-check", "--pipeline", str(corpus[0].parent)])
+    # the command line says so in one line and exits 2
+    assert port_main(["bench-check", "--pipeline",
+                      str(corpus[0].parent)]) == 2
     run = tmp_path / "run"
     shutil.copytree(corpus[0].parent, run)
+    assert port_main(["check", str(run)]) == 2
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        port_main(["check", str(run)])
+        from jepsen_tpu_torch.__main__ import check_run
+
+        check_run(run, None, "cuda")
     with pytest.raises(RuntimeError):  # pinned host memory needs a card
         from jepsen_tpu_torch.parallel.staging import _Slot
 
