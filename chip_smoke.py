@@ -66,10 +66,38 @@ Phases, each of which fails the run when it fails:
    run, no quarantine, one K1 launch per segment (the shapes printed);
    the per-segment p50/p99, the stats and merge halves timed apart, and
    K1 at the segment shapes B=1 × L=65,536 × V=32,768 (int16) and
-   V=65,536 (int32) with ``[L]`` pos, against its plain version, timed.
+   V=65,536 (int32) with ``[L]`` pos, against its plain version, timed;
+10. the checker service as a user starts it: ``python -m
+   jepsen_tpu_torch serve-checker --batch --warmup --warmup-buckets
+   128:128,256:256 --target-batch 32 --max-batch-wait-ms 25`` (a second
+   such server for the latency probe, and two servers without
+   ``--batch``, one with the worker-death hook
+   ``JEPSEN_TPU_SERVE_DIE_AFTER=0:3``) as processes on ports each picks
+   and names in its banner, driven over TCP by the port's
+   ``CheckerClient`` at the JAX
+   service bench's standalone configuration: the ``check`` op over
+   12,000 histories of 40 ops in requests of 1,000 and over phase 7's
+   10,240 histories at L=1024 in requests of 1,024 (every reply equal to
+   the in-process ``check_queue_batch`` on the card, one K1 launch per
+   request in the server; histories/s over the wire, the server's
+   ``service.check_latency_s`` p50/p99); 64 concurrent streams of 100
+   blocks of 64 rows with coalescing on and off (every verdict equal to
+   its serial oracle, the segmented engine on the CPU; blocks/s admitted
+   to verdict), then the bench's latency probe, 64 streams paced at 0.6
+   of the coalescing-on rate (``service.batch_fill``,
+   ``batch_coalesce_s`` and ``batch_dispatch_s`` p50/p99 at full load
+   and under the probe; every dispatched bucket a warm-up hit,
+   no salvage, K1 launches by bucket equal to the server's K1 count); 6
+   streams of 1,200 ops with worker 0 killed at its 3rd block (verdicts
+   equal to the oracle, the recovery claimed); a content key streamed
+   before hitting the verdict cache and ``/metrics`` showing the
+   counters; every server stopped by SIGINT with exit code 0; and K1 at
+   the batcher's buckets (B=32, L=V=128 and 256, ``[B, L]`` pos) and the
+   ``check`` op's batches against its plain version, timed.
 
 The second-to-last line is the kernel table as JSON (K1's entry lists
-its bench and segment shapes under ``shapes``); the last line is
+its bench, segment and service shapes under ``shapes``, and the service
+servers' K1 counts under ``service_launches``); the last line is
 ``{"ok": true, "device": {...}}``.  A good run also appends its kernel
 table, build report and timings, with the card, to
 ``chiprun_out/chip_smoke.jsonl``.  Without a CUDA device, or without the
@@ -88,6 +116,7 @@ import os
 import random
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -366,6 +395,7 @@ class Smoke:
         self.pipeline = {}
         self.bench = {}
         self.segmented = {}
+        self.service = {}
         self.shapes = []  # K1's shapes on the bench and segmented paths
         self.tmp = Path(tempfile.mkdtemp(prefix="chip_smoke-"))
 
@@ -1038,6 +1068,250 @@ class Smoke:
                                 "value": dt, "pos": f"[{pos}]", **t,
                                 "launches": launches})
 
+    def service_phase(self):
+        """The checker service as a user starts it: ``serve-checker
+        --batch --warmup`` (and two servers without ``--batch``, one with
+        the worker-death hook) as processes, driven over TCP by the
+        port's ``CheckerClient``: the ``check`` op over 12,000 small
+        histories and over phase 7's 10,240 histories, 64 concurrent
+        streams with coalescing on and off, a worker killed mid-feed,
+        and the verdict cache; every reply and verdict equal to the
+        port's in-process check or serial oracle, K1 launched by every
+        check request and every coalesced super-batch, each server
+        stopped by SIGINT with exit code 0."""
+        from jepsen_tpu_torch.checkers.fused import check_queue_batch
+        from jepsen_tpu_torch.history.synth import SynthSpec, synth_batch
+        from jepsen_tpu_torch.timing import BASE_HISTORIES, MAIN_B, N_OPS
+
+        store = self.tmp / "service-store"
+        store.mkdir()
+        caps = ["--max-streams", str(BAT_MAX_STREAMS), "--ingress-cap",
+                str(BAT_INGRESS_CAP)]
+        batching = [
+            "--batch", "--warmup", "--warmup-buckets", "128:128,256:256",
+            "--target-batch", str(TARGET_BATCH), "--max-batch-wait-ms",
+            str(MAX_BATCH_WAIT_MS), *caps]
+        servers = {
+            "batch": _ServerProc("batch", store, self.tmp, batching),
+            "probe": _ServerProc("probe", store, self.tmp, batching),
+            "serial": _ServerProc("serial", store, self.tmp, caps),
+            "chaos": _ServerProc("chaos", store, self.tmp, [], env={
+                "JEPSEN_TPU_SERVE_DIE_AFTER": f"0:{KILL_BLOCK}"}),
+        }
+        try:
+            for srv in servers.values():  # started together, awaited here
+                print(f"service: {srv.name}: {srv.wait_banner()}")
+            a = servers["batch"]
+            # the check op: 12,000 histories of 40 ops, then phase 7's
+            # 10,240 histories at L=1024
+            base = _serve_corpus(SERVE_BASE, SERVE_OPS, SERVE_SEED)
+            half = BASE_HISTORIES // 2
+            spec = SynthSpec(n_ops=N_OPS, n_processes=5)
+            store_hs = [sh.ops for sh in synth_batch(half, spec)] + [
+                sh.ops for sh in synth_batch(
+                    half, dataclasses.replace(spec, seed=half), lost=1,
+                    duplicated=1)]
+            requests = []
+            for name, hs, n, per, length in (
+                    ("small", base, SERVE_HISTORIES, SERVE_REQUEST, None),
+                    ("store", store_hs, MAIN_B, STORE_REQUEST, 1024)):
+                want = [_wire_ref(r) for r in check_queue_batch(
+                    hs, device=self.dev)]
+                rec, request = a.check_arm(hs, n, per, length, want)
+                requests.append((request, rec["k1_launches"]))
+                self.service.setdefault("check", []).append(
+                    {"corpus": name, **rec})
+                print(f"service: check over the wire, {name}: "
+                      f"{rec['histories']} histories in {rec['requests']} "
+                      f"requests of B={rec['B']} L={rec['L']} V={rec['V']}: "
+                      f"{rec['histories_per_s']:.1f} histories/s over the "
+                      f"wire ({rec['wall_s']:.6f} s; per request "
+                      f"{rec['client_ms_per_request']:.3f} ms at the "
+                      f"client, {rec['server_ms_per_request']:.3f} ms in "
+                      f"the server's check), {rec['k1_launches']} "
+                      f"K1 launches in the server, replies == in-process "
+                      f"check_queue_batch, {rec['invalid']} invalid, on "
+                      f"{self.card}")
+            lat = a.metrics()
+            q = lat.get("jepsen_tpu_service_check_latency_s", {})
+            self.service["check_latency_s"] = {
+                k: q.get(f'op="check",quantile="{k}"') for k in ("0.5",
+                                                                "0.99")}
+            print(f"service: server's service.check_latency_s p50 "
+                  f"{self.service['check_latency_s']['0.5']} s / p99 "
+                  f"{self.service['check_latency_s']['0.99']} s, on "
+                  f"{self.card}")
+            # continuous batching: 64 streams of 100 blocks x 64 rows,
+            # coalescing on, then off
+            corpus = [_stream_entry(h) for h in _serve_corpus(
+                8, max(64, BAT_BLOCK_ROWS * BAT_BLOCKS // 2),
+                SERVE_SEED + 400)]
+            arms = {}
+            for arm, srv in (("on", a), ("off", servers["serial"])):
+                arms[arm] = rec = srv.stream_arm(corpus, BAT_STREAMS,
+                                                 BAT_BLOCK_ROWS, threads=8)
+                print(f"service: coalescing {arm}: {BAT_STREAMS} streams, "
+                      f"{rec['blocks']} blocks admitted to verdict in "
+                      f"{rec['wall_s']:.6f} s = {rec['blocks_per_s']:.1f} "
+                      f"blocks/s, {rec['k1_launches']} K1 launches, "
+                      f"verdicts == serial oracle; p50/p99 "
+                      f"service.block_check_s (a worker's block) "
+                      f"{rec['sketches']['block_check_s']}, "
+                      f"service.submit_to_verdict_s (open to verdict) "
+                      f"{rec['sketches']['submit_to_verdict_s']}, on "
+                      f"{self.card}")
+            # the latency probe: a fresh batching server, fed below the
+            # coalescing-on arm's measured capacity
+            probe = servers["probe"]
+            pace = BAT_PROBE_LOAD * arms["on"]["blocks_per_s"]
+            probe_corpus = [_stream_entry(h) for h in _serve_corpus(
+                8, max(64, BAT_BLOCK_ROWS * BAT_BLOCKS // 8),
+                SERVE_SEED + 401)]
+            arms["probe"] = rec = probe.stream_arm(
+                probe_corpus, BAT_STREAMS, BAT_BLOCK_ROWS, threads=8,
+                pace_rate=pace)
+            rec["pace_blocks_per_s"] = pace
+            bat = arms["on"]["stats"]["batcher"]
+            self.service["batching"] = {
+                arm: {k: v for k, v in r.items() if k != "stats"}
+                for arm, r in arms.items()}
+            for arm, srv in (("on", a), ("probe", probe)):
+                m = srv.metrics()
+                self.service["batching"][arm]["batcher_sketches"] = {
+                    k: {p: m.get(f"jepsen_tpu_service_{k}", {}).get(
+                        f'quantile="{p}"') for p in ("0.5", "0.99")}
+                    for k in ("batch_fill", "batch_coalesce_s",
+                              "batch_dispatch_s")}
+            self.service["batching"]["batcher"] = bat
+            for b in (bat, arms["probe"]["stats"]["batcher"]):
+                if b["salvages"] or b["warmup_misses"] or not b[
+                        "warmup_hits"]:
+                    raise AssertionError(f"service: batcher {b}")
+            if arms["on"]["k1_launches"] != sum(
+                    bat["bucket_launches"].values()) or not (
+                    0 < bat["bucket_launches"].get("128x128", 0)
+                    < arms["on"]["blocks"]):
+                raise AssertionError(
+                    f"service: {arms['on']['k1_launches']} K1 launches, "
+                    f"by bucket {bat['bucket_launches']}")
+            for arm, what in (("on", "at full offered load"),
+                              ("probe", f"paced at {pace:.1f} blocks/s")):
+                sk = self.service["batching"][arm]["batcher_sketches"]
+                b = arms[arm]["stats"]["batcher"]
+                print(f"service: coalescing on, {what} "
+                      f"({arms[arm]['blocks']} blocks, "
+                      f"{arms[arm]['blocks_per_s']:.1f} blocks/s): "
+                      f"batch_fill p50/p99 {sk['batch_fill']}, "
+                      f"batch_coalesce_s {sk['batch_coalesce_s']}, "
+                      f"batch_dispatch_s {sk['batch_dispatch_s']}; warm-up "
+                      f"hits {b['warmup_hits']} misses "
+                      f"{b['warmup_misses']}; batch_salvages "
+                      f"{b['salvages']}; K1 launches by bucket "
+                      f"{b['bucket_launches']}; on {self.card}")
+            self.service["host_ms_per_block"] = cost = _merge_cost(
+                corpus[0][0], self.dev)
+            print(f"service: a landed block's host work in the collector, "
+                  f"ms per block over one stream's {cost['blocks']} blocks "
+                  f"(its stats prepared and launched once beforehand): "
+                  f"merge {cost['merge']:.6f}, verdict window "
+                  f"{cost['window']:.6f}, carry footprint "
+                  f"{cost['footprint']:.6f}; before it, the feed's frames "
+                  f"both ways {cost['wire']:.6f} and the prep "
+                  f"{cost['prep']:.6f}; all in one interpreter, on "
+                  f"{self.card}")
+            # chaos: worker 0 dies mid-feed of its 3rd block
+            chaos = [_stream_entry(h) for h in _serve_corpus(
+                CHAOS_STREAMS, CHAOS_OPS, SERVE_SEED + 200)]
+            rec = servers["chaos"].stream_arm(
+                chaos, CHAOS_STREAMS, max(64, 2 * CHAOS_OPS // CHAOS_BLOCKS),
+                threads=1, chaos=True)
+            self.service["chaos"] = {k: v for k, v in rec.items()
+                                     if k != "stats"}
+            print(f"service: chaos: {CHAOS_STREAMS} streams, worker 0 "
+                  f"killed at its block {KILL_BLOCK}: "
+                  f"{rec['stats']['worker_deaths']} death, "
+                  f"{rec['stats']['block_requeues']} requeued block(s), "
+                  f"{rec['degraded']} verdict(s) claim the recovery, all "
+                  f"== serial oracle")
+            # the verdict cache: a content key streamed above hits
+            hit = a.cache_arm(corpus[1])
+            self.service["cache"] = hit
+            print(f"service: cache: {hit}")
+            self._service_k1_timing(requests, bat["bucket_launches"])
+        finally:
+            rcs = {name: srv.stop() for name, srv in servers.items()}
+        self.service["exit_codes"] = rcs
+        print(f"service: servers stopped by SIGINT: exit codes {rcs}")
+        if any(rcs.values()):
+            raise AssertionError(f"service: a server exited {rcs}")
+        self.kernel["service_launches"] = {
+            "check": sum(c["k1_launches"] for c in self.service["check"]),
+            "coalesced": arms["on"]["k1_launches"],
+            "uncoalesced": arms["off"]["k1_launches"]}
+
+    def _service_k1_timing(self, check_requests, bucket_launches):
+        """K1 at the service's shapes: the batcher's two buckets, B=32 at
+        L=V=128 and L=V=256 with a ``[B, L]`` pos (random segments, each
+        with its own global positions), and the ``check`` op's batches:
+        bit-exact against the plain version, timed, and its bound."""
+        from jepsen_tpu_torch.checkers.segmented import _k1_input
+        from jepsen_tpu_torch.ops.queue_stats import (
+            fused_queue_stats,
+            queue_stats_plain,
+        )
+        from jepsen_tpu_torch.timing import event_ms, queued_ms
+
+        cases = []
+        for L, V in ((128, 128), (256, 256)):
+            p = _bucket_preps(TARGET_BATCH, L, V, seed=L)
+            cols = [torch.from_numpy(np.stack([q[k] for q in p])).to(self.dev)
+                    for k in ("f", "typ", "val", "mask", "pos")]
+            cases.append((_k1_input(*cols[:4], V), cols[4], "[B, L]",
+                          bucket_launches.get(f"{L}x{V}", 0)))
+        for request, launches in check_requests:
+            g = dataclasses.replace(request, **{
+                k: getattr(request, k).to(self.dev)
+                for k in ("f", "type", "value", "mask")})
+            cases.append((g, None, None, launches))
+        for packed, pos, pos_kind, launches in cases:
+            B, L, V = packed.batch, packed.length, packed.value_space
+            k = fused_queue_stats(packed, pos)
+            pl = queue_stats_plain(packed.f, packed.type, packed.value,
+                                   packed.mask, V, pos)
+            torch.cuda.synchronize()
+            err = _stats_err(k, pl)
+            _equal_fields(k, pl, f"K1 vs plain at B={B} L={L} V={V}")
+            ms = event_ms(lambda: fused_queue_stats(packed, pos), 50)
+            plain_ms = event_ms(lambda: queue_stats_plain(
+                packed.f, packed.type, packed.value, packed.mask, V, pos),
+                10)
+            device_ms, host_us = queued_ms(
+                lambda: fused_queue_stats(packed, pos), 50)
+            ins = [packed.f, packed.type, packed.value, packed.mask]
+            nbytes = sum(t.numel() * t.element_size() for t in (
+                *ins, *([pos] if pos is not None else []))) + B * 6 * V * 4
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = OPS_PER_ROW * B * L / INT32_OPS_PER_S * 1e3
+            rec = {"phase": "service", "B": B, "L": L, "V": V,
+                   "value": str(packed.value.dtype).removeprefix("torch."),
+                   "pos": pos_kind, "ms": ms, "device_ms": device_ms,
+                   "host_us": host_us, "plain_ms": plain_ms,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations", "bytes": nbytes,
+                   "max_abs_err": err,
+                   "load_path": fused_queue_stats.last_path,
+                   "launches": launches}
+            self.shapes.append(rec)
+            print(f"service: K1 at B={B} L={L} V={V} pos={pos_kind}: "
+                  f"{ms:.6f} ms back to back, {device_ms:.6f} ms device "
+                  f"time ({max(bytes_ms, ops_ms) / device_ms:.1%} of the "
+                  f"{max(bytes_ms, ops_ms):.6f} ms bound, {nbytes} bytes), "
+                  f"wrapper host time {host_us:.3f} us, plain "
+                  f"{plain_ms:.6f} ms, max_abs_err {err}, "
+                  f"{fused_queue_stats.last_path} path, {launches} launches "
+                  f"in the service run, on {self.card}")
+
     def _segment_k1_timing(self, hp) -> dict:
         """K1 at the segment shapes B=1 × L=65,536 × V=32,768 (int16 ids,
         segment 1 of the long history) and V=65,536 (int32 ids, a segment
@@ -1097,6 +1371,373 @@ class Smoke:
                   f" ms, max_abs_err {err}, {fused_queue_stats.last_path} "
                   f"path, on {self.card}")
         return out
+
+
+#: the service phase's configuration: the JAX service bench's standalone
+#: defaults (``tools/bench_serve.py``, its argument parser): the check
+#: arm's 12,000 histories of 40 ops (16 distinct, seed 16, the first with
+#: one lost value) in requests of 1,000; the batching arm's 64 streams of
+#: 100 blocks of 64 rows (8 distinct histories of 3,200 ops, seed 416),
+#: target batch 32 within 25 ms, both arms' servers admitting 72 streams
+#: and 8,192 blocks in flight (the bench's ``max_streams`` and
+#: ``ingress_cap``), then the latency probe: 64 streams of 800 ops (seed
+#: 417) fed at 0.6 of the coalescing-on arm's measured blocks/s, so that
+#: ``batch_coalesce_s`` reads the scheduler's hold and not saturation
+#: queueing; the chaos arm's 6 streams of 1,200 ops in about 8 blocks
+#: (seed 216), worker 0 killed at its 3rd block
+SERVE_HISTORIES, SERVE_BASE, SERVE_OPS, SERVE_SEED = 12_000, 16, 40, 16
+SERVE_REQUEST, STORE_REQUEST = 1_000, 1_024
+BAT_STREAMS, BAT_BLOCKS, BAT_BLOCK_ROWS = 64, 100, 64
+TARGET_BATCH, MAX_BATCH_WAIT_MS = 32, 25.0
+BAT_MAX_STREAMS = BAT_STREAMS + 8
+BAT_INGRESS_CAP = max(256, 4 * BAT_STREAMS * TARGET_BATCH)
+BAT_PROBE_LOAD = 0.6
+CHAOS_STREAMS, CHAOS_OPS, CHAOS_BLOCKS, KILL_BLOCK = 6, 1_200, 8, 3
+
+
+def _serve_corpus(n_base: int, n_ops: int, seed: int) -> list:
+    """``n_base`` distinct queue histories (the first with one lost
+    value), as the JAX service bench synthesizes its corpus."""
+    from jepsen_tpu_torch.history.synth import SynthSpec, synth_history
+
+    return [synth_history(SynthSpec(n_ops=n_ops, seed=seed + i,
+                                    lost=1 if i == 0 else 0)).ops
+            for i in range(n_base)]
+
+
+def _stream_entry(ops) -> tuple:
+    """``(rows, n_ops, serial oracle's families)`` of one history: the
+    oracle is the port's segmented engine on the CPU, fed whole."""
+    from jepsen_tpu_torch.checkers.segmented import SegmentedChecker
+    from jepsen_tpu_torch.history.rows import _rows_for
+
+    rows = _rows_for(ops)
+    eng = SegmentedChecker("queue", device="cpu")
+    eng.feed_rows(rows, len(ops))
+    return rows, len(ops), _families(eng.finish())
+
+
+def _families(v: dict) -> dict:
+    from jepsen_tpu_torch.service.stream import _wire_safe
+
+    return {k: _wire_safe(v.get(k)) for k in ("queue", "linear", "valid?")}
+
+
+def _wire_ref(r: dict) -> dict:
+    """One history's check maps as the wire's ``check`` op answers them
+    (no delivery key in ``linear``), from a reply or an in-process
+    result."""
+    from jepsen_tpu_torch.service.stream import _wire_safe
+
+    lin = {k: v for k, v in r["linear"].items() if k != "delivery"}
+    return {"queue": _wire_safe(r["queue"]), "linear": _wire_safe(lin),
+            "valid?": bool(r["queue"]["valid?"] and lin["valid?"])}
+
+
+def _bucket_preps(B: int, L: int, V: int, seed: int = 0) -> list:
+    """``B`` random prepared segments of the batcher's bucket ``(L, V)``,
+    each with its own increasing global positions."""
+    from jepsen_tpu_torch.checkers.segmented import local_id_dtype
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(B):
+        mask = np.zeros(L, bool)
+        mask[: int(rng.integers(1, L + 1))] = True
+        out.append({
+            "f": rng.integers(-1, 3, L).astype(np.int8),
+            "typ": rng.integers(-1, 4, L).astype(np.int8),
+            "val": rng.integers(-1, V, L).astype(local_id_dtype(V)),
+            "pos": np.sort(rng.integers(0, 2**31 - 1, L)).astype(np.int32),
+            "mask": mask,
+        })
+    return out
+
+
+def _merge_cost(rows, dev) -> dict:
+    """Milliseconds per block of the host work around K1 for one stream
+    (64-row blocks), each piece timed alone: the feed's frames (encoded
+    and decoded both ways), the connection thread's prep, then the
+    collector's carry merge, verdict window and carry footprint."""
+    from jepsen_tpu_torch.checkers.segmented import (
+        SegmentedChecker,
+        queue_prepare_rows,
+        queue_stats_from_prepared,
+    )
+    from jepsen_tpu_torch.history.columnar import iter_row_blocks
+
+    blocks = list(iter_row_blocks(rows, BAT_BLOCK_ROWS))
+    t0 = time.perf_counter()
+    preps = [queue_prepare_rows(b, b[:, 0].astype(np.int64))
+             for b, _n in blocks]
+    prep = time.perf_counter() - t0
+    stats = [queue_stats_from_prepared(p, dev) for p in preps]
+    eng = SegmentedChecker("queue", device="cpu")
+    out = {"merge": 0.0, "window": 0.0, "footprint": 0.0}
+    for st, (_b, n) in zip(stats, blocks):
+        t0 = time.perf_counter()
+        eng.merge_queue_stats(st, n)
+        t1 = time.perf_counter()
+        eng.verdict_so_far()
+        t2 = time.perf_counter()
+        eng.state_nbytes()
+        t3 = time.perf_counter()
+        out["merge"] += t1 - t0
+        out["window"] += t2 - t1
+        out["footprint"] += t3 - t2
+    # one feed's frames both ways over a socket pair: what the client and
+    # the server's connection thread encode and decode for each block
+    import socket
+
+    from jepsen_tpu_torch.service.protocol import recv_frame, send_frame
+
+    a, b = socket.socketpair()
+    try:
+        t0 = time.perf_counter()
+        for seq, (blk, n_ops) in enumerate(blocks):
+            send_frame(a, {"op": "stream-feed", "stream": "s0", "seq": seq,
+                           "n_ops": n_ops},
+                       {"rows": np.ascontiguousarray(blk, np.int32)},
+                       crc=True)
+            recv_frame(b)
+            send_frame(b, {"op": "accepted", "stream": "s0", "seq": seq,
+                           "queue_depth": 1})
+            recv_frame(a)
+        out["wire"] = time.perf_counter() - t0
+    finally:
+        a.close()
+        b.close()
+    n = len(blocks)
+    return {"blocks": n, "prep": prep / n * 1e3,
+            **{k: v / n * 1e3 for k, v in out.items()}}
+
+
+class _ServerProc:
+    """One ``serve-checker`` process on the card, on ports it picks
+    itself (``--port 0 --metrics-port 0``) and names in its banner, and
+    the arms that drive it through the port's ``CheckerClient``."""
+
+    def __init__(self, name: str, store: Path, tmp: Path, args: list,
+                 env: dict | None = None):
+        self.name = name
+        self.port = self.metrics_port = None
+        self.log = tmp / f"serve-{name}.log"
+        with open(self.log, "w") as fh:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "jepsen_tpu_torch", "serve-checker",
+                 "--host", "127.0.0.1", "--port", "0", "--metrics-port", "0",
+                 "--store", str(store), *args],
+                cwd=ROOT, env={**os.environ, **(env or {})},
+                stdout=subprocess.PIPE, stderr=fh, text=True)
+
+    def wait_banner(self, timeout: float = 180.0) -> str:
+        import re
+        import threading
+
+        timer = threading.Timer(timeout, self.proc.kill)
+        timer.start()
+        try:
+            line = self.proc.stdout.readline()
+        finally:
+            timer.cancel()
+        got = re.match(r"checker sidecar on [^ ]+:(\d+) \(.*, metrics="
+                       r"http://[^ ]+:(\d+)/metrics\)$", line.strip())
+        if not got:
+            raise AssertionError(f"service: the {self.name} server did not "
+                                 f"start: {line!r}\n"
+                                 f"{self.log.read_text()[-3000:]}")
+        self.port, self.metrics_port = map(int, got.groups())
+        return line.strip()
+
+    def client(self):
+        """A client that re-offers a rejected (SATURATED) block with a
+        short backoff, as an honest client does."""
+        from jepsen_tpu_torch.service import CheckerClient, RetryPolicy
+
+        return CheckerClient("127.0.0.1", self.port, timeout=300,
+                             retry=RetryPolicy(attempts=500, base_s=0.001,
+                                               cap_s=0.02, seed=0))
+
+    def stats(self) -> dict:
+        with self.client() as c:
+            return c.service_stats()
+
+    def metrics(self) -> dict:
+        """``/metrics`` as ``{name: {labels: value}}``."""
+        import urllib.request
+
+        url = f"http://127.0.0.1:{self.metrics_port}/metrics"
+        with urllib.request.urlopen(url, timeout=60) as r:
+            text = r.read().decode()
+        out: dict = {}
+        for line in text.splitlines():
+            if line and not line.startswith("#"):
+                key, value = line.rsplit(" ", 1)
+                name, _, labels = key.partition("{")
+                out.setdefault(name, {})[labels.rstrip("}")] = float(value)
+        return out
+
+    def check_arm(self, hs, n: int, per: int, length, want):
+        """``n`` histories (``hs`` repeated) in requests of ``per`` over
+        the ``check`` op, packed once; every reply equal to ``want``."""
+        from jepsen_tpu_torch.history.encode import pack_histories
+
+        packed = pack_histories(hs, length=length, device="cpu")
+        idx = torch.arange(per) % len(hs)
+        request = dataclasses.replace(packed, **{
+            k: getattr(packed, k)[idx] for k in ("f", "type", "value",
+                                                 "mask")})
+        before = self.stats()["k1_launches"]
+        m0 = self.metrics()
+        with self.client() as c:
+            t0 = time.perf_counter()
+            replies = [c.check_packed(request) for _ in range(n // per)]
+            wall = time.perf_counter() - t0
+        launches = self.stats()["k1_launches"] - before
+        m1 = self.metrics()
+        # the server's own time per request (its check, not the reply's
+        # encoding, transfer and decoding): the sketch's sum over count
+        d = {k: m1[f"jepsen_tpu_service_check_latency_s_{k}"]['op="check"']
+             - m0.get(f"jepsen_tpu_service_check_latency_s_{k}", {}).get(
+                 'op="check"', 0.0) for k in ("sum", "count")}
+        for reply in replies:
+            for i, r in enumerate(reply):
+                if _wire_ref(r) != want[i % len(hs)]:
+                    raise AssertionError(
+                        f"service: check reply {i} differs from the "
+                        "in-process check_queue_batch")
+        if launches != len(replies):
+            raise AssertionError(f"service: {len(replies)} check requests "
+                                 f"launched K1 {launches} times")
+        rec = {"histories": per * len(replies), "requests": len(replies),
+               "B": request.batch, "L": request.length,
+               "V": request.value_space, "wall_s": wall,
+               "histories_per_s": per * len(replies) / wall,
+               "client_ms_per_request": wall / len(replies) * 1e3,
+               "server_ms_per_request": d["sum"] / d["count"] * 1e3,
+               "k1_launches": launches,
+               "invalid": sum(not r["valid?"] for rep in replies
+                              for r in rep)}
+        return rec, request
+
+    def stream_arm(self, corpus, n_streams: int, block_rows: int,
+                   threads: int, chaos: bool = False,
+                   pace_rate: float | None = None) -> dict:
+        """``n_streams`` concurrent streams (``corpus`` repeated) fed
+        round-robin from ``threads`` connections, admitted to verdict;
+        every verdict equal to its serial oracle.  ``pace_rate``
+        (blocks/s, over all connections) holds the feed below capacity,
+        as the bench's latency probe does."""
+        import itertools
+        import threading
+
+        from jepsen_tpu_torch.history.columnar import iter_row_blocks
+
+        nc = len(corpus)
+        blocks = [list(iter_row_blocks(rows, block_rows))
+                  for rows, _n, _o in corpus]
+        total = sum(len(blocks[i % nc]) for i in range(n_streams))
+        verdicts: list = [None] * n_streams
+        errors: list = []
+        tickets = itertools.count()
+
+        def work(j):
+            try:
+                with self.client() as c:
+                    mine = list(range(j, n_streams, threads))
+                    sids = {i: c.stream_open("queue")["stream"]
+                            for i in mine}
+                    cur = dict.fromkeys(mine, 0)
+                    while any(cur[i] < len(blocks[i % nc]) for i in mine):
+                        for i in mine:
+                            b = blocks[i % nc]
+                            if cur[i] >= len(b):
+                                continue
+                            if pace_rate:
+                                wait = (t0 + next(tickets) / pace_rate
+                                        - time.perf_counter())
+                                if wait > 0:
+                                    time.sleep(wait)
+                            rep = c.stream_feed_rows(sids[i], cur[i],
+                                                     *b[cur[i]])
+                            if rep["op"] != "accepted":
+                                raise AssertionError(f"service: {rep}")
+                            cur[i] += 1
+                    for i in mine:
+                        verdicts[i] = c.stream_finish(sids[i], timeout=300)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+
+        before = self.stats()["k1_launches"]
+        workers = [threading.Thread(target=work, args=(j,))
+                   for j in range(threads)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors or any(w.is_alive() for w in workers):
+            raise AssertionError(f"service: {self.name} streams failed: "
+                                 f"{errors[:1]}")
+        stats = self.stats()
+        for i, v in enumerate(verdicts):
+            if _families(v) != corpus[i % nc][2]:
+                raise AssertionError(f"service: {self.name} stream {i} "
+                                     "differs from its serial oracle")
+        degraded = sum("degraded" in v for v in verdicts)
+        if chaos and (stats["worker_deaths"] != 1 or not degraded):
+            raise AssertionError(f"service: chaos claimed no recovery: "
+                                 f"{stats}")
+        if not chaos and (degraded or stats["worker_deaths"]):
+            raise AssertionError(f"service: {self.name}: {stats}")
+        m = self.metrics()
+        sketches = {k: {p: v if (v := m.get(f"jepsen_tpu_service_{k}", {})
+                                 .get(f'quantile="{p}"')) == v else None
+                        for p in ("0.5", "0.99")}
+                    for k in ("block_check_s", "submit_to_verdict_s")}
+        return {"streams": n_streams, "blocks": total, "wall_s": wall,
+                "blocks_per_s": total / wall, "degraded": degraded,
+                "k1_launches": stats["k1_launches"] - before,
+                "sketches": sketches, "stats": stats}
+
+    def cache_arm(self, entry) -> dict:
+        """A content key streamed before hits the verdict cache, by
+        ``cache-get`` and by ``stream-open``; ``/metrics`` shows the
+        service's counters."""
+        import hashlib
+
+        rows, _n, families = entry
+        key = hashlib.sha256(np.ascontiguousarray(rows).tobytes()).hexdigest()
+        with self.client() as c:
+            got = c.cache_get(key, "queue")
+            opened = c.stream_open("queue", content_key=key)
+        if got["op"] != "cached" or opened["op"] != "cached" or _families(
+                opened["verdict"]) != families:
+            raise AssertionError(f"service: cache {got['op']} / "
+                                 f"{opened['op']}")
+        names = ("jepsen_tpu_service_cache_hits",
+                 "jepsen_tpu_service_warmup_hits",
+                 "jepsen_tpu_service_batch_salvages",
+                 "jepsen_tpu_service_bucket_launches",
+                 "jepsen_tpu_service_batch_fill")
+        m = self.metrics()
+        missing = [n for n in names if n not in m]
+        if missing:
+            raise AssertionError(f"service: /metrics lacks {missing}")
+        return {"cache_get": got["op"], "stream_open": opened["op"],
+                "cache": self.stats()["cache"],
+                "cache_hits_metric": m["jepsen_tpu_service_cache_hits"][""]}
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+        try:
+            self.proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.communicate(timeout=30)
+        return self.proc.returncode
 
 
 #: the segmented phase's configuration, SEGMENTED.md's: about 1,000,016
@@ -1271,7 +1912,8 @@ def main() -> int:
               (s.recorded_phase, "build_phase"), (s.timing_phase, "main_phase"),
               (s.pipeline_phase, "build_phase"),
               (s.bench_phase, "pipeline_phase"),
-              (s.segmented_phase, "build_phase")]
+              (s.segmented_phase, "build_phase"),
+              (s.service_phase, "build_phase")]
     failed = []
     try:
         for phase, needs in phases:
@@ -1305,7 +1947,8 @@ def main() -> int:
     _record({"card": s.card, "torch": torch.__version__,
              "kernels": [kernel], "timing": s.timing, "build": s.build,
              "exact": s.exact, "pipeline": s.pipeline, "bench": s.bench,
-             "segmented": s.segmented, "matplotlib": s.matplotlib})
+             "segmented": s.segmented, "service": s.service,
+             "matplotlib": s.matplotlib})
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

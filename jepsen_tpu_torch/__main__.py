@@ -28,11 +28,17 @@ store through the pipeline executor, as the JAX command does.
 ``python -m jepsen_tpu_torch synth`` writes synthetic queue histories
 into a store, as JSONL or EDN.
 
-``check`` and ``bench-check`` take ``--device`` (default ``cuda``;
-``cpu`` runs the plain versions).  Exit codes: 0 valid, 1 invalid, 3
-unknown; 2 for a usage or environment error (a missing history, a
-family or option that is not ported, no card for ``--device cuda``, a
-kernel that does not build), with a one-line ``error: …`` on stderr.
+``python -m jepsen_tpu_torch serve-checker`` runs the checker service
+(``service/server.py``) until SIGINT: ``check`` requests and streamed
+histories from many clients, with ``--batch`` coalescing streams'
+segments into K1 launches on ``[B, L]`` stacks.
+
+``check``, ``bench-check`` and ``serve-checker`` take ``--device``
+(default ``cuda``; ``cpu`` runs the plain versions).  Exit codes: 0
+valid (or a server stopped by SIGINT), 1 invalid, 3 unknown; 2 for a
+usage or environment error (a missing history, a family or option that
+is not ported, no card for ``--device cuda``, a kernel that does not
+build or launch, a CUDA error), with a one-line ``error: …`` on stderr.
 """
 
 from __future__ import annotations
@@ -302,13 +308,13 @@ def bench_check(
     workload: str = "auto",
     workers: int = 0,
     profile: str | Path | None = None,
-    delivery: str | None = None,
     device: str = "cuda",
 ) -> dict:
     """``bench-check`` without ``--pipeline``: one batch of queue
     histories (synthetic, or those under ``histories``) packed and
-    checked in one call, as the JAX command does.  Returns the JSON line
-    the command prints."""
+    checked in one call, exactly-once, as the JAX command does (it reads
+    ``--delivery`` only with ``--pipeline``).  Returns the JSON line the
+    command prints."""
     from jepsen_tpu_torch.checkers.fused import combined_tensor_check
     from jepsen_tpu_torch.device import resolve_device
     from jepsen_tpu_torch.history.encode import pack_histories, pack_row_matrices
@@ -373,7 +379,6 @@ def bench_check(
         # that the next re-check skips the per-file reads and the assembly
         store_cache_dst = (histories, paths)
 
-    delivery = delivery or "exactly-once"
     with _profiler(profile, dev) as prof:
         t0 = time.perf_counter()
         if packed_pre is not None:
@@ -386,10 +391,10 @@ def bench_check(
         t_pack = time.perf_counter() - t0
         if store_cache_dst is not None:
             save_packed_store_cache(*store_cache_dst, packed)
-        combined_tensor_check(packed, delivery)  # warm-up
+        combined_tensor_check(packed)  # warm-up
         _sync(dev)
         t1 = time.perf_counter()
-        tq, ql = combined_tensor_check(packed, delivery)
+        tq, ql = combined_tensor_check(packed)
         _sync(dev)
         t_check = time.perf_counter() - t1
     n_invalid = int((~(tq.valid & ql.valid)).sum())
@@ -459,10 +464,6 @@ def check_segmented(path: Path, args) -> dict:
         check_source_segmented,
     )
 
-    if args.prefix_index:
-        raise NotImplementedError(
-            "--prefix-index (fleet prefix resume, history/prefix_index.py) "
-            "is not ported yet (ROADMAP.md, Open items §1, item 4a)")
     if args.carry_cap is not None:
         raise NotImplementedError(
             "--carry-cap bounds the mutex family's open-class carry, which "
@@ -476,7 +477,7 @@ def check_segmented(path: Path, args) -> dict:
     t0 = time.perf_counter()
     result, _stats = check_source_segmented(
         None, hpath, segment_ops=args.segment_ops, resume=args.resume,
-        device=dev, delivery=delivery,
+        device=dev, delivery=delivery, prefix_index=args.prefix_index,
     )
     dt = time.perf_counter() - t0
     meta = result["segmented"]
@@ -487,6 +488,11 @@ def check_segmented(path: Path, args) -> dict:
           f"segments of {meta['segment_ops']} in {dt:.2f} s (segment p50 "
           f"{sk.quantile(0.5) * 1e3:.1f} ms / p99 "
           f"{sk.quantile(0.99) * 1e3:.1f} ms{resumed})", file=sys.stderr)
+    pfx = meta.get("resumed_from_prefix")
+    if pfx:
+        print(f"# fleet memory: resumed from prefix anchor @ segment "
+              f"{pfx['segment_idx']} (offset {pfx['offset']}, "
+              f"{pfx['substrate']})", file=sys.stderr)
     if meta.get("quarantined-segments"):
         print(f"# QUARANTINED: {meta['quarantined-segments']} poisoned "
               "segment(s) — verdict capped at unknown with evidence",
@@ -542,10 +548,41 @@ def _cmd_bench_check(args) -> int:
         summary = bench_check(
             histories, count=args.count, ops=args.ops,
             workload=args.workload, workers=args.workers,
-            profile=args.profile, delivery=args.delivery,
-            device=args.device,
+            profile=args.profile, device=args.device,
         )
     print(json.dumps(summary))
+    return 0
+
+
+def _cmd_serve_checker(args) -> int:
+    from jepsen_tpu_torch.parallel.pipeline import MULTI_NOT_PORTED
+    from jepsen_tpu_torch.service.server import serve_forever
+
+    if args.seq != 1:
+        raise NotImplementedError(
+            f"--seq {args.seq}: sharding histories over a device mesh is "
+            f"not ported yet (ROADMAP.md, {MULTI_NOT_PORTED})")
+    buckets = []
+    for part in str(args.warmup_buckets).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            length, space = part.split(":", 1)
+            buckets.append((int(length), int(space)))
+        except ValueError:
+            raise UsageError(
+                f"--warmup-buckets: {part!r} is not L:V") from None
+    serve_forever(
+        host=args.host, port=args.port, store=args.store,
+        metrics_port=args.metrics_port, workers=args.workers,
+        max_streams=args.max_streams, ingress_cap=args.ingress_cap,
+        stream_deadline_s=args.stream_deadline,
+        batch=args.batch, target_batch=args.target_batch,
+        max_batch_wait_ms=args.max_batch_wait_ms,
+        warmup=args.warmup, warmup_buckets=tuple(buckets),
+        device=args.device,
+    )
     return 0
 
 
@@ -589,7 +626,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "open-class carry (not ported; the queue family's "
                    "carry is unbounded)")
     c.add_argument("--prefix-index", dest="prefix_index", default=None,
-                   metavar="DIR", help="fleet prefix resume (not ported)")
+                   metavar="DIR",
+                   help="with --segment-ops: fleet prefix resume; publish "
+                   "every full-segment checkpoint into a content-keyed "
+                   "index under DIR, and resume a re-submitted history "
+                   "from the deepest anchor whose (prefix sha256, offset) "
+                   "matches its bytes, to the verdict of a check from "
+                   "scratch")
     c.set_defaults(fn=_cmd_check)
 
     b = sub.add_parser("bench-check",
@@ -621,8 +664,9 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--chunk", type=int, default=64,
                    help="with --pipeline: histories per chunk (default 64)")
     b.add_argument("--delivery", choices=DELIVERIES, default=None,
-                   help="the queue's delivery contract (default "
-                   "exactly-once)")
+                   help="with --pipeline: the queue's delivery contract "
+                   "(default exactly-once; without --pipeline the batch "
+                   "is checked exactly-once, as the JAX command does)")
     b.add_argument("--fail-fast", dest="fail_fast", action="store_true",
                    help="with --pipeline: abort on any stage failure "
                    "instead of quarantining the history")
@@ -652,6 +696,63 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--duplicated", type=int, default=0)
     s.add_argument("--unexpected", type=int, default=0)
     s.set_defaults(fn=_cmd_synth)
+
+    sc = sub.add_parser(
+        "serve-checker",
+        help="run the checker service (check requests and streamed "
+        "histories over TCP)")
+    sc.add_argument("--host", default="0.0.0.0")
+    sc.add_argument("--port", type=int, default=8640)
+    sc.add_argument("--seq", type=int, default=1,
+                    help="seq-parallel shards per history on a device mesh "
+                    "(only 1: the mesh is not ported)")
+    sc.add_argument("--store", default="store",
+                    help="store root: seeds the verdict cache from its "
+                    "recorded runs, and its ckpt_index/ feeds the prefix "
+                    "index gauge")
+    sc.add_argument("--metrics-port", dest="metrics_port", type=int,
+                    default=9640,
+                    help="Prometheus text /metrics endpoint; 0 = an "
+                    "ephemeral port, -1 = off")
+    sc.add_argument("--workers", type=int, default=2,
+                    help="checker workers running streams' carry engines "
+                    "(a dead worker's streams requeue onto survivors)")
+    sc.add_argument("--max-streams", dest="max_streams", type=int,
+                    default=256,
+                    help="open streams admitted at once; opens past it are "
+                    "rejected SATURATED")
+    sc.add_argument("--ingress-cap", dest="ingress_cap", type=int,
+                    default=1024,
+                    help="blocks accepted and not yet checked, over all "
+                    "streams; feeds past it are rejected SATURATED")
+    sc.add_argument("--stream-deadline", dest="stream_deadline", type=float,
+                    default=120.0,
+                    help="seconds an open stream may sit idle before it is "
+                    "quarantined as overdue")
+    sc.add_argument("--batch", action="store_true",
+                    help="continuous batching: coalesce ready segments of "
+                    "all streams into shape-bucketed K1 launches on [B, L] "
+                    "stacks, at the target size or the latency budget, "
+                    "whichever comes first")
+    sc.add_argument("--target-batch", dest="target_batch", type=int,
+                    default=32,
+                    help="--batch: segments per super-batch (the launch's "
+                    "batch is the next power of two)")
+    sc.add_argument("--max-batch-wait-ms", dest="max_batch_wait_ms",
+                    type=float, default=25.0,
+                    help="--batch: the longest a bucket's oldest segment "
+                    "waits before a partial batch is launched")
+    sc.add_argument("--warmup", action="store_true",
+                    help="--batch: at start, allocate each bucket's ring "
+                    "and launch K1 once per bucket; hits and misses on "
+                    "/metrics")
+    sc.add_argument("--warmup-buckets", dest="warmup_buckets",
+                    default="128:128,256:256",
+                    help="--warmup: comma-separated L:V buckets")
+    sc.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                    "versions, only when asked)")
+    sc.set_defaults(fn=_cmd_serve_checker)
     return p
 
 

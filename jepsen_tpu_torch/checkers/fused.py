@@ -60,16 +60,18 @@ def combined_tensor_check(
 fused_tensor_check = combined_tensor_check
 
 
-def queue_results(tq, ql, delivery: str, n: int | None = None,
-                  ) -> list[dict[str, Any]]:
+def queue_results(tq, ql, delivery: str | None = None,
+                  n: int | None = None) -> list[dict[str, Any]]:
     """The verdict tensors of :func:`combined_tensor_check` → one
     ``{"queue": …, "linear": …}`` pair of result maps for each of the
-    first ``n`` histories (all by default); each ``linear`` map records
-    its delivery contract, which a re-check inherits."""
+    first ``n`` histories (all by default).  Each ``linear`` map records
+    its delivery contract, which a re-check inherits; with ``delivery``
+    None it has no such key, as the service's ``check`` reply."""
     out = []
     for q, lin in zip(_tensors_to_results(tq)[:n],
                       queue_lin_tensors_to_results(ql)[:n]):
-        lin["delivery"] = delivery
+        if delivery is not None:
+            lin["delivery"] = delivery
         out.append({"queue": q, "linear": lin})
     return out
 

@@ -194,6 +194,12 @@ def _queue_segment_stats_np(rows: np.ndarray, pos: np.ndarray):
     return u, a, e, x, d, s, t
 
 
+def local_id_dtype(V: int):
+    """The numpy dtype of a segment's dense local value ids below ``V``:
+    int16 up to 32,768 values, int32 above."""
+    return np.int16 if V <= 1 << 15 else np.int32
+
+
 def queue_prepare_rows(rows: np.ndarray, pos: np.ndarray):
     """The host half of a segment's stats: the queue rows of one segment
     as K1's fixed-shape ``[L]`` columns, plus the local→global value map
@@ -226,7 +232,7 @@ def queue_prepare_rows(rows: np.ndarray, pos: np.ndarray):
             f"op positions {int(p.min())}..{int(p.max())} do not fit int32")
     fb = np.full(L, -1, np.int8)
     tb = np.full(L, -1, np.int8)
-    vb = np.full(L, NO_VALUE, np.int16 if V <= 1 << 15 else np.int32)
+    vb = np.full(L, NO_VALUE, local_id_dtype(V))
     pb = np.zeros(L, np.int32)
     mb = np.zeros(L, bool)
     fb[:n_rel] = f[rel]
@@ -319,6 +325,28 @@ def seg_queue_batch_program(f, typ, val, pos, mask, V):
     on that device; the caller trims row i to its entry's ``len(u)``."""
     st = _dispatch(_k1_input(f, typ, val, mask, V), pos)
     return st.a, st.e, st.x, st.d, st.s, st.t
+
+
+def warmup_queue_buckets(buckets, batch: int, device="cuda") -> int:
+    """``serve-checker --warmup``: for each ``(L, V)`` bucket, one K1
+    launch at ``[batch, L]`` with ``[batch, L]`` pos on ``device``, then a
+    synchronize, so that the first super-batch of a warmed bucket finds
+    K1 built and loaded (there is no compile cache to fill).  On the CPU
+    it runs the plain version once per bucket.  Returns the number of
+    buckets warmed."""
+    dev = torch.device(device)
+    warmed = 0
+    for L, V in buckets:
+        val = torch.from_numpy(np.zeros(0, local_id_dtype(V))).dtype
+        i8 = torch.full((batch, L), -1, dtype=torch.int8, device=dev)
+        seg_queue_batch_program(
+            i8, i8, torch.zeros((batch, L), dtype=val, device=dev),
+            torch.zeros((batch, L), dtype=torch.int32, device=dev),
+            torch.zeros((batch, L), dtype=torch.bool, device=dev), int(V))
+        warmed += 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return warmed
 
 
 class QueueCarry:
@@ -572,6 +600,18 @@ class SegmentedChecker:
         self.segments += 1
         self.ops_seen += n_ops
 
+    def merge_queue_stats(self, stats, n_ops: int) -> None:
+        """The demux half of the service's coalesced step: fold one
+        segment's per-value stats (a row of a coalesced K1 launch) into
+        the carry, equal to :meth:`feed_rows` on the rows they were
+        prepared from, provided the caller merges one stream's segments
+        in order."""
+        if self.quarantines:
+            return
+        self._guarded(self.carry.merge_stats, *stats)
+        self.segments += 1
+        self.ops_seen += n_ops
+
     def feed(self, ops: Sequence[Op], start_op: int | None = None) -> None:
         """One segment of ops.  Positions are the global op index
         (``start_op`` defaults to the running count), the monolithic
@@ -644,6 +684,13 @@ class SegmentedChecker:
             "quarantines": [q.as_dict() for q in self.quarantines],
             "carry": self.carry.state(),
         }
+
+    def state_nbytes(self, state: dict | None = None) -> int:
+        """The carry's footprint in bytes: the compact-JSON size of
+        :meth:`state` (pass a state already taken to reuse it).  The
+        service sums it over live streams as ``service.carry_bytes``."""
+        d = self.state() if state is None else state
+        return len(json.dumps(d, separators=(",", ":")).encode())
 
     @classmethod
     def from_state(cls, d: dict, device="cuda") -> "SegmentedChecker":
@@ -756,6 +803,43 @@ def clear_checkpoints(path: Path) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _coerce_prefix_index(prefix_index: Any):
+    """A path becomes a
+    :class:`~jepsen_tpu_torch.history.prefix_index.PrefixCheckpointIndex`;
+    an index object (anything with ``publish`` and ``lookup``) passes
+    through."""
+    if prefix_index is None:
+        return None
+    if hasattr(prefix_index, "lookup") and hasattr(prefix_index, "publish"):
+        return prefix_index
+    from jepsen_tpu_torch.history.prefix_index import PrefixCheckpointIndex
+
+    return PrefixCheckpointIndex(prefix_index)
+
+
+def _publish_quiet(pindex, doc: dict) -> None:
+    """A failed publish costs later reuse, never this verdict: the local
+    checkpoint is already durable."""
+    try:
+        pindex.publish(doc)
+    except Exception as e:  # noqa: BLE001 - reuse is best-effort
+        logger.warning("prefix index publish failed: %s", e)
+
+
+def _prefix_resume(lookup, device):
+    """The engine resumed from the deepest fleet anchor that ``lookup()``
+    serves, and that hit; ``(None, None)`` on a miss."""
+    t0 = time.perf_counter()
+    hit = lookup()
+    REGISTRY.sketch("prefix_index.lookup_s").add(time.perf_counter() - t0)
+    if hit is None:
+        return None, None
+    engine = SegmentedChecker.from_state(hit.doc["state"], device=device)
+    engine.resumed_from = int(hit.doc["segment_idx"])
+    REGISTRY.counter("segmented.prefix_resumes").inc()
+    return engine, hit
+
+
 def _peek_workload(path: Path, n: int = 256) -> str:
     """The workload of the first ≤n ops, parsed leniently: lines that do
     not parse are skipped here, and the checking loop meets them again
@@ -790,11 +874,14 @@ def _maybe_die(die_after: int | None, idx: int) -> None:
 
 
 def _finish_result(engine, src: Path, segment_ops: int, substrate: str,
-                   refusals: list[str], cpath: Path) -> dict[str, Any]:
+                   refusals: list[str], cpath: Path,
+                   hit=None) -> dict[str, Any]:
     result = engine.finish()
     result["segmented"]["segment_ops"] = segment_ops
     result["segmented"]["source"] = str(src)
     result["segmented"]["substrate"] = substrate
+    if hit is not None:
+        result["segmented"]["resumed_from_prefix"] = hit.provenance()
     if refusals:
         result["segmented"]["checkpoints_refused"] = refusals
         REGISTRY.counter("segmented.ckpt_refused").inc(len(refusals))
@@ -810,6 +897,7 @@ def segmented_check_file(
     opts: dict | None = None,
     resume: bool = False,
     device="cuda",
+    prefix_index: Any = None,
 ) -> dict[str, Any]:
     """Check one recorded history through the segmented engine: bounded
     memory, a durable checkpoint after each segment, resume.
@@ -820,24 +908,35 @@ def segmented_check_file(
     and is never parsed whole.  ``resume=True`` goes on from the newest
     valid checkpoint (a refused one falls back to ``.prev``, then to a
     run from scratch, always loudly) to the same verdict.  A complete
-    check that quarantined nothing removes its checkpoints."""
+    check that quarantined nothing removes its checkpoints.
+
+    ``prefix_index`` (a directory or a
+    :class:`~jepsen_tpu_torch.history.prefix_index.PrefixCheckpointIndex`)
+    turns on fleet prefix resume: every full-segment checkpoint is also
+    published under its content anchor, and a history sharing a verified
+    prefix with one published before resumes from the deepest matching
+    anchor, to the verdict of a check from scratch, with the anchor
+    recorded in ``result["segmented"]["resumed_from_prefix"]``.  A valid
+    local checkpoint (``resume=True``) wins over the index."""
     src = Path(src)
     cpath = checkpoint_path_for(src)
     if workload in (None, "auto"):
         workload = _peek_workload(src)
     _refuse_workload(workload)
     opts = dict(opts or {})
+    pindex = _coerce_prefix_index(prefix_index)
 
     rows = _jtc_queue_rows(src)
     if rows is not None:
         return _segmented_check_rows(
             src, rows, segment_ops=segment_ops, opts=opts, resume=resume,
-            cpath=cpath, device=device,
+            cpath=cpath, device=device, pindex=pindex,
         )
 
     engine: SegmentedChecker | None = None
     start_segment = 0
     expect_sha = expect_bytes = None
+    hit = None
     refusals: list[str] = []
     if resume:
         doc, refusals = load_checkpoint_chain(cpath)
@@ -869,6 +968,15 @@ def segmented_check_file(
                 expect_sha = doc["source_sha256"]
                 expect_bytes = int(doc["source_bytes"])
                 REGISTRY.counter("segmented.resumes").inc()
+    if engine is None and pindex is not None:
+        # the deepest anchor whose (offset, sha256) matches this file's
+        # own bytes: a divergent byte unmatches it, a shallower one serves
+        engine, hit = _prefix_resume(lambda: pindex.lookup(
+            src, workload=workload, segment_ops=segment_ops, opts=opts),
+            device)
+        if hit is not None:
+            start_segment = engine.resumed_from + 1
+            expect_sha, expect_bytes = hit.sha256, hit.offset
     if engine is None:
         engine = SegmentedChecker(workload, opts=opts, device=device)
 
@@ -905,7 +1013,7 @@ def segmented_check_file(
         sketch.add(time.perf_counter() - t0)
         seg_counter.inc()
         if seg.ops or not seg.final:
-            write_checkpoint(cpath, {
+            doc = {
                 "format": CKPT_FORMAT,
                 "substrate": "jsonl",
                 "workload": workload,
@@ -917,12 +1025,18 @@ def segmented_check_file(
                 "opts": opts,
                 "partial": _partial_summary(engine),
                 "state": engine.state(),
-            })
+            }
+            write_checkpoint(cpath, doc)
+            # fleet anchors only at full segment boundaries: a final short
+            # segment refills in an extended file
+            if pindex is not None and len(seg.ops) == segment_ops:
+                _publish_quiet(pindex, doc)
             _maybe_die(die_after, seg.idx)
         if seg.final:
             break
 
-    return _finish_result(engine, src, segment_ops, "jsonl", refusals, cpath)
+    return _finish_result(engine, src, segment_ops, "jsonl", refusals, cpath,
+                          hit)
 
 
 def _jtc_queue_rows(src: Path) -> np.ndarray | None:
@@ -952,13 +1066,15 @@ def _segmented_check_rows(
     resume: bool,
     cpath: Path,
     device,
+    pindex: Any = None,
 ) -> dict[str, Any]:
     """The ``.jtc`` segment producer: fixed-count op segments are
     ``searchsorted`` slices of the mmap'd row matrix (column 0, the
     recorded op index, is monotone), fed to the queue carry with no parse
     and no ``Op``.  The checkpoint anchors on the whole source's digest
     (the substrate is stamped against the source bytes), and records the
-    row prefix and its digest, as the JAX package's does."""
+    row prefix and its digest, as the JAX package's does; that row prefix
+    is the fleet anchor."""
     import hashlib
 
     idx_col = rows[:, 0]
@@ -968,6 +1084,7 @@ def _segmented_check_rows(
 
     engine: SegmentedChecker | None = None
     start_segment = 0
+    hit = None
     refusals: list[str] = []
     if resume:
         doc, refusals = load_checkpoint_chain(cpath)
@@ -994,6 +1111,12 @@ def _segmented_check_rows(
                 engine.resumed_from = int(doc["segment_idx"])
                 start_segment = engine.resumed_from + 1
                 REGISTRY.counter("segmented.resumes").inc()
+    if engine is None and pindex is not None:
+        engine, hit = _prefix_resume(lambda: pindex.lookup_rows(
+            rows, workload="queue", segment_ops=segment_ops, opts=opts),
+            device)
+        if hit is not None:
+            start_segment = engine.resumed_from + 1
     if engine is None:
         engine = SegmentedChecker("queue", opts=opts, device=device)
 
@@ -1023,7 +1146,7 @@ def _segmented_check_rows(
         sketch.add(time.perf_counter() - t0)
         seg_counter.inc()
         row_hash.update(np.ascontiguousarray(rows[lo:hi]).tobytes())
-        write_checkpoint(cpath, {
+        doc = {
             "format": CKPT_FORMAT,
             "substrate": "jtc",
             "workload": "queue",
@@ -1037,10 +1160,14 @@ def _segmented_check_rows(
             "opts": opts,
             "partial": _partial_summary(engine),
             "state": engine.state(),
-        })
+        }
+        write_checkpoint(cpath, doc)
+        if pindex is not None and n_ops == segment_ops:
+            _publish_quiet(pindex, doc)
         _maybe_die(die_after, k)
 
-    return _finish_result(engine, src, segment_ops, "jtc", refusals, cpath)
+    return _finish_result(engine, src, segment_ops, "jtc", refusals, cpath,
+                          hit)
 
 
 def _partial_summary(engine: SegmentedChecker) -> dict:

@@ -171,6 +171,18 @@ class Jtc:
         )
         return mat, meta
 
+    def content_key(self) -> str:
+        """Content address of the payload: hex sha256 over the section
+        bytes in kind order.  The stamp's mtime and size never enter, so
+        re-packs of one history share it; for a queue history it equals
+        the digest the service computes over the same rows streamed as
+        contiguous block slices, and it keys the service's verdict
+        cache."""
+        h = hashlib.sha256()
+        for kind in sorted(self.arrays):
+            h.update(np.ascontiguousarray(self.arrays[kind]).tobytes())
+        return h.hexdigest()
+
 
 def read_jtc(path: str | Path) -> tuple[Jtc, dict]:
     """Read and CRC-verify one ``.jtc`` (no source-freshness check: that
@@ -378,6 +390,20 @@ def consult(src_path: str | Path) -> Jtc | None:
 # ---------------------------------------------------------------------------
 # Writing
 # ---------------------------------------------------------------------------
+
+
+def iter_row_blocks(rows: np.ndarray, block_rows: int):
+    """Contiguous ``(slice, n_ops)`` blocks over a ``[n, 8]`` row matrix,
+    the wire unit for streaming a queue substrate.  Slices are views;
+    ``n_ops`` counts the distinct op indices (column 0) in the slice.
+    Block boundaries do not matter for correctness (positions are
+    global through column 0); ``block_rows`` sets the frame size."""
+    if block_rows < 1:
+        raise ValueError("block_rows must be >= 1")
+    n = rows.shape[0]
+    for lo in range(0, n, block_rows):
+        blk = rows[lo : lo + block_rows]
+        yield blk, int(len(np.unique(blk[:, 0])))
 
 
 def _coerce_sections(rows, stream, emops, wgl=None) -> list | None:

@@ -1,8 +1,8 @@
 """Metrics registry: counters, gauges, mergeable quantile sketches.
 
-The port's own copy of the JAX package's ``obs/metrics.py`` (without its
-HTTP endpoint, which comes with the service): the same classes, the same
-sketch arithmetic and the same Prometheus text, so that the same samples
+The port's own copy of the JAX package's ``obs/metrics.py``: the same
+classes, the same sketch arithmetic, the same Prometheus text and the
+same HTTP endpoint (:func:`serve_metrics`), so that the same samples
 give the same quantiles and the same text in both packages.
 
 Naming: dotted lowercase ``subsystem.metric`` with a unit suffix (``_s``
@@ -348,3 +348,97 @@ def render_prometheus(registry: Registry | None = None) -> str:
             lines.append(f"{pname}{_prom_labels(labels)} {metric.value}")
     lines += _trace_health_lines()
     return "\n".join(lines) + "\n"
+
+
+#: what ``GET /report/<run>`` answers until the report renderer is ported
+REPORT_NOT_PORTED = (
+    "per-run reports need the report renderer, which is not ported yet "
+    "(ROADMAP.md, Open items §1, items 5 and 10)"
+)
+
+
+def serve_metrics(
+    host: str = "0.0.0.0",
+    port: int = 9640,
+    registry: Registry | None = None,
+    store: str | None = None,
+    cache=None,
+):
+    """A stdlib HTTP server answering ``GET /metrics`` with the
+    Prometheus text of ``registry`` (default: the global one).  With
+    ``cache`` (a verdict cache, or a zero-argument callable returning one
+    or None: the service builds its cache lazily), also ``GET
+    /report/by-key/<cache-key>``: a read-only peek that answers 302 to
+    the entry's recorded run under ``/report/``, 404 when there is no
+    entry or it names no run, 503 when no cache is wired.  With
+    ``store``, ``GET /report/<run>`` answers 501: rendering a run's
+    report is not ported yet.  Returns the server (``.server_address``
+    carries the bound port; :meth:`start_background` serves it on a
+    daemon thread; ``.shutdown()`` and ``.server_close()`` stop it)."""
+    import http.server
+
+    reg = registry or REGISTRY
+
+    class _Handler(http.server.BaseHTTPRequestHandler):
+        def _serve_report_by_key(self, key: str) -> None:
+            vc = cache() if callable(cache) else cache
+            if vc is None:
+                self.send_error(503, "verdict cache not wired on this "
+                                "service")
+                return
+            entry = vc.peek(key.strip("/"))
+            if entry is None:
+                self.send_error(404, "no cached verdict under that key")
+                return
+            ref = entry.get("report_ref")
+            if not ref:
+                self.send_error(
+                    404,
+                    "cached verdict has no recorded run to browse "
+                    "(served from the wire, not the store)",
+                )
+                return
+            self.send_response(302)
+            self.send_header(
+                "Location", "/report/" + str(ref).strip("/") + "/"
+            )
+            self.end_headers()
+
+        def do_GET(self):  # noqa: N802 - stdlib API
+            path = self.path.split("?", 1)[0]
+            if cache is not None and path.startswith("/report/by-key/"):
+                self._serve_report_by_key(path[len("/report/by-key/"):])
+                return
+            if store is not None and path.startswith("/report/"):
+                self.send_error(501, "report rendering not ported",
+                                REPORT_NOT_PORTED)
+                return
+            if path != "/metrics":
+                self.send_error(
+                    404,
+                    "only /metrics (and /report/<run>, when a store "
+                    "is wired) lives here",
+                )
+                return
+            body = render_prometheus(reg).encode()
+            self.send_response(200)
+            self.send_header(
+                "Content-Type", "text/plain; version=0.0.4; charset=utf-8"
+            )
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):  # scrapes are periodic; stay quiet
+            pass
+
+    class _Server(http.server.ThreadingHTTPServer):
+        allow_reuse_address = True
+        daemon_threads = True
+
+        def start_background(self) -> threading.Thread:
+            t = threading.Thread(target=self.serve_forever, daemon=True)
+            t.start()
+            return t
+
+    return _Server((host, port), _Handler)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -34,6 +35,7 @@ from jepsen_tpu_torch.ops import _build
 from jepsen_tpu_torch.ops.counts import masked_value_counts, masked_value_reduce_min
 
 N_STATS = 6
+_COUNT_LOCK = threading.Lock()
 
 
 @dataclass
@@ -174,7 +176,8 @@ def _launch(packed: PackedHistories, pos: torch.Tensor | None) -> QueueStats:
     if rc:
         raise _build.KernelLaunchError(
             f"queue_stats kernel launch failed: CUDA error {rc}")
-    fused_queue_stats.launches += 1
+    with _COUNT_LOCK:  # handler, worker and batcher threads launch at once
+        fused_queue_stats.launches += 1
     fused_queue_stats.last_path = _PATHS[path.value]
     return QueueStats(*out.unbind(1))
 

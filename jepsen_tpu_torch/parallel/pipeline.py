@@ -41,6 +41,7 @@ and is never quarantined into ``unknown``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -510,6 +511,103 @@ def _pow2_bucket(n: int, floor: int = 128) -> int:
     return b
 
 
+class BucketStagingRing:
+    """The service batcher's staging for one coalescing bucket ``(L, V)``:
+    ``depth`` recycled host slots at ``[batch, L]`` in K1's own dtypes
+    (int8 ``f``/``typ``, int16 ``val`` or int32 where ``V`` exceeds
+    32,767, int32 ``pos``, bool ``mask``) and a ``[6, batch, V]`` int32
+    buffer for the stat planes, so that dispatch allocates no host memory
+    in steady state.  The counterpart of the JAX package's
+    ``parallel/pipeline.py::StagingRing`` (:class:`StagingRing` of
+    ``parallel/staging.py`` is the executor's, another ring).
+
+    The dispatcher acquires a slot, fills it and launches
+    (:func:`dispatch_coalesced`); the collector waits on the slot's
+    event, reads the stat planes and only then releases it, so a slot is never refilled while a launch could still read it,
+    and the device tensors of the launch stay referenced by the slot
+    until then.  On a CUDA device the slots are pinned, and a ring that
+    cannot pin raises."""
+
+    def __init__(self, batch: int, length: int, value_space: int,
+                 device, depth: int = 2):
+        from jepsen_tpu_torch.checkers.segmented import local_id_dtype
+
+        self.batch, self.length = batch, length
+        pin = torch.device(device).type == "cuda"
+        val = torch.from_numpy(np.zeros(0, local_id_dtype(value_space))).dtype
+
+        def host(shape, dtype, fill=0):
+            t = torch.full(shape, fill, dtype=dtype, pin_memory=pin)
+            if pin and not t.is_pinned():
+                raise RuntimeError("could not allocate page-locked host "
+                                   "memory for the batcher's staging ring")
+            return t
+
+        self._free: queue.Queue = queue.Queue()
+        for _ in range(max(1, depth)):
+            shape = (batch, length)
+            self._free.put({
+                "f": host(shape, torch.int8, -1),
+                "typ": host(shape, torch.int8, -1),
+                "val": host(shape, val),
+                "pos": host(shape, torch.int32),
+                "mask": host(shape, torch.bool),
+                "out": host((6, batch, value_space), torch.int32),
+                "event": torch.cuda.Event() if pin else None,
+                "inflight": None,
+            })
+
+    def acquire(self, timeout: float | None = None):
+        try:
+            return self._free.get(timeout=timeout)
+        except queue.Empty:
+            return None
+
+    def release(self, slot) -> None:
+        slot["inflight"] = None  # the launch's device tensors may go now
+        self._free.put(slot)
+
+    def fill(self, slot, preps) -> None:
+        """Copy ``len(preps)`` prepared segments of this bucket into the
+        slot's rows; the rows past them are masked out, so every launch
+        runs at the one ``[batch, L]`` shape."""
+        cols = {k: slot[k].numpy() for k in ("f", "typ", "val", "pos",
+                                              "mask")}
+        n = len(preps)
+        for i, p in enumerate(preps):
+            for k, c in cols.items():
+                c[i] = p[k]
+        cols["mask"][n:] = False
+
+
+#: the host columns of a ring slot, in the order K1's program takes them
+_SLOT_COLUMNS = ("f", "typ", "val", "pos", "mask")
+
+
+def dispatch_coalesced(slot, V: int, stream=None) -> None:
+    """Launch one filled ring slot: each host plane copied to the ring's
+    device with ``non_blocking=True`` on ``stream`` (the batcher's own
+    CUDA stream), K1 on the ``[batch, L]`` stacks with ``[batch, L]`` pos
+    (:func:`~jepsen_tpu_torch.checkers.segmented.seg_queue_batch_program`),
+    the six ``[batch, V]`` stat planes copied back into the slot's pinned
+    ``out``, and an event recorded after them.  Nothing waits: the
+    collector waits on ``slot["event"]`` before it reads ``out``.  On the
+    CPU the same calls run synchronously and there is no event."""
+    from jepsen_tpu_torch.checkers.segmented import seg_queue_batch_program
+
+    dev = slot["f"].device if stream is None else stream.device
+    ctx = torch.cuda.stream(stream) if stream is not None else (
+        contextlib.nullcontext())
+    with ctx:
+        cols = [slot[k].to(dev, non_blocking=True) for k in _SLOT_COLUMNS]
+        planes = seg_queue_batch_program(*cols, V)
+        for k, plane in enumerate(planes):
+            slot["out"][k].copy_(plane, non_blocking=True)
+        if slot["event"] is not None:
+            slot["event"].record(stream)
+    slot["inflight"] = (cols, planes)
+
+
 def _chunks(seq: Sequence[Any], size: int) -> list[Sequence[Any]]:
     size = max(1, size)
     return [seq[i : i + size] for i in range(0, len(seq), size)]
@@ -875,13 +973,15 @@ def check_source_segmented(
     segment_ops: int,
     resume: bool = False,
     device: str | torch.device = "cuda",
+    prefix_index=None,
     **opts,
 ) -> tuple[dict, PipelineStats]:
     """The pipeline's segment-producer mode: one history streamed through
     the segmented carry engine (``checkers/segmented.py``) in fixed-count
     segments, with bounded memory whatever the history's length, a
     durable checkpoint after each segment, and ``resume=True`` to go on
-    from the last one.  Each segment's check time lands in the global
+    from the last one, ``prefix_index`` to publish and resume from fleet
+    prefix anchors.  Each segment's check time lands in the global
     registry's ``segmented.segment_check_s`` sketch, and the returned
     :class:`PipelineStats` counts the segments as checked batches."""
     from jepsen_tpu_torch.checkers.segmented import segmented_check_file
@@ -896,6 +996,7 @@ def check_source_segmented(
         opts={k: v for k, v in opts.items() if v is not None},
         resume=resume,
         device=device,
+        prefix_index=prefix_index,
     )
     t1 = time.perf_counter()
     stats.histories = 1

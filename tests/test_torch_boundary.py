@@ -37,9 +37,18 @@ def _forbidden(module: str) -> bool:
     return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
 
 
+#: modules the scans must cover by name (the service slice's among them)
+REQUIRED = ("service/protocol.py", "service/cache.py", "service/stream.py",
+            "service/batcher.py", "service/server.py", "service/client.py",
+            "report/index.py", "history/prefix_index.py")
+
+
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    scanned = {p.relative_to(PORT).as_posix() for p in files
+               if p.is_relative_to(PORT)}
+    assert set(REQUIRED) <= scanned
     bad = [
         (str(p.relative_to(REPO)), m)
         for p in files
@@ -71,6 +80,8 @@ def test_importing_the_port_loads_no_jax_and_no_cuda_context():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["loaded"] == [] and report["cuda"] is False
     assert len(modules) > 10
+    assert {"jepsen_tpu_torch." + m.removesuffix(".py").replace("/", ".")
+            for m in REQUIRED} <= set(modules)
 
 
 def test_default_device_raises_without_a_card():
@@ -115,3 +126,41 @@ def test_parpack_children_run_the_port_module_and_import_no_jax(tmp_path):
     want = [_rows_for(sh.ops) for sh in synth_batch(
         2, SynthSpec(n_ops=30, seed=5), lost=1)]
     assert len(got) == 2 and all((a == b).all() for a, b in zip(got, want))
+
+
+def test_serve_checker_process_loads_no_jax(tmp_path):
+    """``serve-checker`` as a process (on the CPU, asked for), from its
+    banner to SIGINT: every module it imported is the port's or another
+    package's, none of JAX or the JAX package."""
+    import signal
+    import threading
+
+    errlog = tmp_path / "stderr.txt"
+    with open(errlog, "w") as err_fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m", "jepsen_tpu_torch",
+             "serve-checker", "--device", "cpu", "--host", "127.0.0.1",
+             "--port", "0", "--metrics-port", "0", "--batch", "--warmup",
+             "--store", str(tmp_path)],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=err_fh, text=True)
+    watchdog = threading.Timer(120, proc.kill)  # a hung start fails, late
+    watchdog.start()
+    try:
+        banner = proc.stdout.readline()
+        assert banner.startswith("checker sidecar on 127.0.0.1:"), banner
+        proc.send_signal(signal.SIGINT)
+        proc.communicate(timeout=60)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    err = errlog.read_text()
+    assert proc.returncode == 0, err[-2000:]
+    imported = {line.rsplit("|", 1)[-1].strip()
+                for line in err.splitlines()
+                if line.startswith("import time:")}
+    assert {"jepsen_tpu_torch.service.server",
+            "jepsen_tpu_torch.service.batcher",
+            "jepsen_tpu_torch.service.stream"} <= imported
+    assert [m for m in imported if _forbidden(m)] == []

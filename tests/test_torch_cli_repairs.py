@@ -1,6 +1,7 @@
 """The port's command line exits as the JAX package's does: 2, with a
 one-line ``error:``, for a usage or environment error (every refusal the
-port makes), and ``check STORE_ROOT`` checks the store's latest run."""
+port makes), ``check STORE_ROOT`` checks the store's latest run, and
+``bench-check`` reads ``--delivery`` only with ``--pipeline``."""
 
 import json
 import os
@@ -90,8 +91,8 @@ REFUSALS = {
                    str(_queue_run(t).parent)], "item 9"),
     "check --prefix-index": (
         lambda t: ["check", "--device", "cpu", "--segment-ops", "8",
-                   "--prefix-index", str(t / "idx"), str(_queue_run(t))],
-        "item 4a"),
+                   "--prefix-index", str(t / "idx"), str(_stream_run(t, "s"))],
+        "item 6"),
     "check --segment-ops --carry-cap": (
         lambda t: ["check", "--device", "cpu", "--segment-ops", "8",
                    "--carry-cap", "10", str(_queue_run(t))], "item 8"),
@@ -270,3 +271,33 @@ def test_check_store_root_resolves_the_latest_run(tmp_path):
         results[pkg] = (rc, saved["queue"], saved["linear"])
     assert results["port"] == results["jax"]
     assert results["port"][0] == 1  # re-checked as exactly-once: invalid
+
+
+def test_bench_check_reads_delivery_only_with_pipeline(tmp_path):
+    """Over a store whose histories hold only duplicated values,
+    ``bench-check --histories STORE --delivery at-least-once`` checks the
+    batch exactly-once in both packages (the JAX command reads
+    ``--delivery`` only with ``--pipeline``), so both count every history
+    invalid; with ``--pipeline`` both honour it and count none."""
+    src = tmp_path / "src"
+    rc, _ = _stdout(port_main, ["synth", "--store", str(src), "--count", "6",
+                                "--ops", "60", "--duplicated", "1"])
+    assert rc == 0
+    counts = {}
+    for pipeline in (False, True):
+        for pkg, fn, dev in (("port", port_main, ["--device", "cpu"]),
+                             ("jax", jax_main, [])):
+            store = tmp_path / f"{pkg}-{pipeline}"
+            shutil.copytree(src, store)
+            argv = ["bench-check", *dev, "--histories", str(store),
+                    "--delivery", "at-least-once"]
+            if pipeline:
+                argv.append("--pipeline")
+            rc, out = _stdout(fn, argv)
+            assert rc == 0
+            summary = json.loads(out.strip().splitlines()[-1])
+            counts[pkg, pipeline] = summary["invalid"], summary["histories"]
+    n = counts["port", False][1]
+    assert n >= 6
+    assert counts["port", False] == counts["jax", False] == (n, n)
+    assert counts["port", True] == counts["jax", True] == (0, n)

@@ -342,3 +342,95 @@ def test_segmented_check_on_the_card_equals_the_cpu(cuda_device, tmp_path):
     for fam in ("queue", "linear", "valid?"):
         assert got[fam] == want[fam], fam
     assert got["queue"]["valid?"] is False
+
+
+def bucket_preps(B: int, L: int, V: int, seed: int = 0) -> list:
+    """``B`` prepared segments of one batcher bucket ``(L, V)``: random
+    codes, dense local ids below ``V`` in K1's dtype for ``V``, each
+    with its own global op indices as positions, and a random fill."""
+    from jepsen_tpu_torch.checkers.segmented import local_id_dtype
+
+    rng = np.random.default_rng(seed)
+    preps = []
+    for i in range(B):
+        n = int(rng.integers(1, L + 1))
+        mask = np.zeros(L, bool)
+        mask[:n] = True
+        preps.append({
+            "f": rng.integers(-1, 3, L).astype(np.int8),
+            "typ": rng.integers(-1, 4, L).astype(np.int8),
+            "val": rng.integers(-1, V, L).astype(local_id_dtype(V)),
+            "pos": np.sort(rng.integers(0, 2**31 - 1, L)).astype(np.int32),
+            "mask": mask,
+        })
+    return preps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, L, V", [(32, 128, 128), (32, 256, 256),
+                                     (2, 65_536, 65_536)])
+def test_kernel_at_batcher_buckets_equals_plain(cuda_device, B, L, V):
+    """K1 as the service batcher drives it: a pinned ring slot filled with
+    ``B`` segments, copied and launched on the batcher's own stream with a
+    ``[B, L]`` pos, the planes copied back behind an event; each row
+    equals the plain version on the same stacks, at the two default
+    buckets and an int32 one."""
+    from jepsen_tpu_torch.parallel.pipeline import (
+        BucketStagingRing,
+        dispatch_coalesced,
+    )
+
+    preps = bucket_preps(B, L, V, seed=L)
+    ring = BucketStagingRing(B, L, V, cuda_device, depth=2)
+    slot = ring.acquire(timeout=5)
+    assert slot["f"].is_pinned() and slot["out"].is_pinned()
+    ring.fill(slot, preps)
+    stream = torch.cuda.Stream(cuda_device)
+    fused_queue_stats.launches = 0
+    dispatch_coalesced(slot, V, stream)
+    slot["event"].synchronize()
+    assert fused_queue_stats.launches == 1
+    cols = {k: torch.from_numpy(np.stack([p[k] for p in preps]))
+            for k in ("f", "typ", "val", "pos", "mask")}
+    want = queue_stats_plain(cols["f"], cols["typ"], cols["val"],
+                             cols["mask"], V, cols["pos"])
+    for i, k in enumerate("aexdst"):
+        assert torch.equal(slot["out"][i], getattr(want, k)), k
+    ring.release(slot)
+
+
+@pytest.mark.cuda
+def test_batching_service_on_the_card_equals_the_cpu(cuda_device):
+    """16 streams through ``IngestService(batch=True)`` on the card and on
+    the CPU: equal verdicts, and K1 launched on the card."""
+    from jepsen_tpu_torch.history.columnar import iter_row_blocks
+    from jepsen_tpu_torch.history.rows import _rows_for
+    from jepsen_tpu_torch.obs.metrics import Registry
+    from jepsen_tpu_torch.service.stream import IngestService, _wire_safe
+
+    corpus = [_rows_for(sh.ops) for sh in synth_batch(
+        16, SynthSpec(n_ops=300, seed=21), lost=1, duplicated=1)]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        svc = IngestService(device=dev, batch=True, target_batch=8,
+                            registry=Registry())
+        fused_queue_stats.launches = 0
+        try:
+            sids = []
+            for rows in corpus:
+                sid = svc.open("queue", None, kind="stream")["stream"]
+                for seq, (blk, n) in enumerate(iter_row_blocks(rows, 96)):
+                    assert svc.feed(sid, seq, "rows", blk, n)["op"] == (
+                        "accepted")
+                sids.append(sid)
+            verdicts = [svc.finish(s, timeout=60) for s in sids]
+            stats = svc.stats()
+        finally:
+            svc.close()
+        assert stats["batcher"]["salvages"] == 0
+        out[str(dev)] = ([{k: _wire_safe(v[k]) for k in
+                           ("queue", "linear", "valid?")} for v in verdicts],
+                         fused_queue_stats.launches)
+    (cpu, _), (card, launches) = out["cpu"], out[str(cuda_device)]
+    assert card == cpu and launches > 0
+    assert all(v["valid?"] is False for v in card)
